@@ -10,10 +10,15 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    CUDA kernels from ``slate_tpu_torch/csrc/``;
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    for every op, mask mode and unit-diagonal setting, in f32 and f64, at
-   16384^2, the ragged test shapes, 131072 x 64 and 64 x 70000;
-3. timings at 16384^2 f32: each kernel, its plain version, the one PyTorch call
-   that computes the same function (timed as a yardstick, never used by the
-   port) and the bound of an H100 SXM for the same work;
+   16384^2, the ragged test shapes, 131072 x 64 and 64 x 70000, on an
+   odd-width view with NaN beyond its width (the 16-byte-load variant) and on
+   an unaligned view (the 1-element variant), with the variant kernel_plan
+   chose; two calls on one input must agree bitwise;
+3. timings at 16384^2 (f32, and f64 for col_reduce sum and row_sums): each
+   kernel and the one PyTorch call that computes the same function (timed as a
+   yardstick, never used by the port) in interleaved rounds (kernel, library,
+   library, kernel), median and spread of each and their ratio, the plain
+   version, and the bound of an H100 SXM for the same work;
 4. checks on small inputs: the solve against numpy, the card against the
    port's CPU path, ``info`` codes, and that the library Cholesky on the card
    reads only the lower triangle;
@@ -31,6 +36,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import statistics
 import subprocess
 import sys
 import time
@@ -57,6 +64,7 @@ MODES = (cn._MODE_GE, cn._MODE_LOWER, cn._MODE_UPPER, cn._MODE_LOWER_STRICT,
          cn._MODE_UPPER_STRICT)
 # kernel vs plain: a max is exact; sums differ only in summation order
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+ROUNDS = 5           # interleaved timing rounds (kernel, library, library, kernel)
 # the main path's shapes (A, and R and X of B - A X), the ragged test shapes, and
 # tall-skinny / short-wide inputs that split the reduced dimension
 KERNEL_SHAPES = [(N, N), (N, NRHS), (5, 3), (1, 129), (257, 131), (8, 8), (300, 200),
@@ -190,6 +198,13 @@ def header() -> dict:
     for line in cn.BUILD_LOG.splitlines():
         if "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    # the 16-byte loads in the machine code (cuobjdump ships with the toolkit)
+    cuobjdump = os.path.join(os.path.dirname(cn._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    wide = sass.count("LDG.E.128")
+    say("sass_16_byte_loads", wide)
+    require(wide > 0, "no 16-byte global loads in the built kernels")
     return {"smi": smi}
 
 
@@ -248,6 +263,43 @@ def kernel_phase() -> dict:
     record("row_sums", _compare(cn.row_sums(view, cn._MODE_UPPER),
                                 cn.row_sums_plain(view, cn._MODE_UPPER), False, 1e-5,
                                 "row_sums strided"))
+    # the variant each input takes: 1-element loads for the unaligned view above,
+    # 16-byte loads for an odd-width view whose columns beyond its width hold NaN
+    # (a load past the edge would show; full_path reports the main path's matrix)
+    variants = {"unaligned_view": (view, 1)}
+    for dtype in (torch.float32, torch.float64):
+        wide = torch.full((700, 516), float("nan"), device="cuda", dtype=dtype)
+        wide[:, :301] = torch.randn((700, 301), generator=gen, device="cuda", dtype=dtype)
+        edge = wide[:, :301]
+        variants[f"nan_edge_view_{str(dtype)[6:]}"] = (edge, 16 // edge.element_size())
+        for mode in MODES:
+            for unit in (False, True):
+                for op in ("sum", "max", "sumsq"):
+                    record("col_reduce", _compare(
+                        cn.col_reduce(edge, mode, unit, op),
+                        cn.col_reduce_plain(edge, mode, unit, op), op == "max",
+                        RTOL[dtype], f"col_reduce NaN-edge {dtype} {mode} {unit} {op}"))
+                record("row_sums", _compare(
+                    cn.row_sums(edge, mode, unit), cn.row_sums_plain(edge, mode, unit),
+                    False, RTOL[dtype], f"row_sums NaN-edge {dtype} {mode} {unit}"))
+    for name, (t, want) in variants.items():
+        for kind in ("col", "row"):
+            vec = cn.kernel_plan(*t.shape, t.dtype, kind, aligned=cn.is_aligned(t))[
+                "vector_width"]
+            say(f"variant_{name}_{kind}_vector_width", vec)
+            require(vec == want, f"{name}: vector width {vec}, expected {want}")
+    del variants
+    # the fold inside the launch is deterministic: two calls agree bitwise,
+    # including the tall and wide inputs with hundreds of splits
+    for shape in ((N, N), (131072, 64), (64, 70000)):
+        a = torch.randn(shape, generator=gen, device="cuda")
+        for op in ("sum", "max", "sumsq"):
+            require(torch.equal(cn.col_reduce(a, op=op), cn.col_reduce(a, op=op)),
+                    f"col_reduce {op} {shape} differs between two calls")
+        require(torch.equal(cn.row_sums(a), cn.row_sums(a)),
+                f"row_sums {shape} differs between two calls")
+        del a
+    say("bitwise_repeat", "equal")
     poisoned = torch.tril(g[:, :500]) + torch.triu(torch.full_like(g[:, :500],
                                                                float("nan")), 1)
     require(bool(torch.isfinite(cn.col_reduce(poisoned, cn._MODE_LOWER, True)).all()
@@ -286,6 +338,18 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def interleaved(kern, lib) -> tuple:
+    """Times (ms) of ``kern`` and ``lib`` over ROUNDS rounds of kernel, library,
+    library, kernel, so that both see the same card state."""
+    ks, ls = [], []
+    for _ in range(ROUNDS):
+        ks.append(time_ms(kern))
+        if lib:
+            ls += [time_ms(lib), time_ms(lib)]
+        ks.append(time_ms(kern))
+    return ks, ls
+
+
 def bound(elems: int, out_len: int, dtype) -> tuple:
     """Least time (ms) an H100 SXM needs: bytes (each element the function
     needs read once, the result written once) over the HBM rate vs operations
@@ -298,45 +362,59 @@ def bound(elems: int, out_len: int, dtype) -> tuple:
 
 def timing_phase() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    a = torch.randn((N, N), generator=gen, device="cuda", dtype=torch.float32)
     full, lower = N * N, N * (N + 1) // 2     # elements a GE / LOWER reduction reads
-    rows = {
-        # name: (kernel call, plain call, library call of the same function,
-        #        elements read, result length)
-        "col_reduce": (lambda: cn.col_reduce(a, op="sum"),
-                       lambda: cn.col_reduce_plain(a, op="sum"),
-                       lambda: torch.linalg.vector_norm(a, 1, dim=0), full, N),
-        "row_sums": (lambda: cn.row_sums(a), lambda: cn.row_sums_plain(a),
-                     lambda: torch.linalg.vector_norm(a, 1, dim=1), full, N),
-        "col_reduce_max": (lambda: cn.col_reduce(a, op="max"),
-                           lambda: cn.col_reduce_plain(a, op="max"),
-                           lambda: torch.linalg.vector_norm(a, float("inf"), dim=0), full, N),
-        "col_reduce_sumsq": (lambda: cn.col_reduce(a, op="sumsq"),
-                             lambda: cn.col_reduce_plain(a, op="sumsq"),
-                             lambda: torch.linalg.vector_norm(a, 2, dim=0), full, N),
-        "col_reduce_lower": (lambda: cn.col_reduce(a, cn._MODE_LOWER, op="sum"),
-                             lambda: cn.col_reduce_plain(a, cn._MODE_LOWER, op="sum"),
-                             None, lower, N),
-        "genorm_fro": (lambda: cn.genorm(a, "fro"), None,
-                       lambda: torch.linalg.matrix_norm(a, "fro"), full, 1),
-        "genorm_one": (lambda: cn.genorm(a, "one"), None,
-                       lambda: torch.linalg.matrix_norm(a, 1), full, 1),
-        "genorm_inf": (lambda: cn.genorm(a, "inf"), None,
-                       lambda: torch.linalg.matrix_norm(a, float("inf")), full, 1),
-    }
     out = {}
-    for name, (kern, plain, lib, elems, out_len) in rows.items():
-        b_ms, b_by = bound(elems, out_len, torch.float32)
-        r = {"ms": time_ms(kern),
-             "plain_ms": time_ms(plain) if plain else None,
-             "library_ms": time_ms(lib) if lib else None,
-             "bound_ms": b_ms, "bound_by": b_by}
-        r["fraction_of_bound"] = b_ms / r["ms"]
-        out[name] = r
-        for key, v in r.items():
-            say(f"time_{name}_{key}", v)
-    del a
-    torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.float64):
+        a = torch.randn((N, N), generator=gen, device="cuda", dtype=dtype)
+        rows = {
+            # name: (kernel call, plain call, library call of the same function,
+            #        elements read, result length, kernel kind)
+            "col_reduce": (lambda: cn.col_reduce(a, op="sum"),
+                           lambda: cn.col_reduce_plain(a, op="sum"),
+                           lambda: torch.linalg.vector_norm(a, 1, dim=0), full, N, "col"),
+            "row_sums": (lambda: cn.row_sums(a), lambda: cn.row_sums_plain(a),
+                         lambda: torch.linalg.vector_norm(a, 1, dim=1), full, N, "row"),
+        }
+        if dtype == torch.float32:
+            rows.update({
+                "col_reduce_max": (lambda: cn.col_reduce(a, op="max"),
+                                   lambda: cn.col_reduce_plain(a, op="max"),
+                                   lambda: torch.linalg.vector_norm(a, float("inf"), dim=0),
+                                   full, N, "col"),
+                "col_reduce_sumsq": (lambda: cn.col_reduce(a, op="sumsq"),
+                                     lambda: cn.col_reduce_plain(a, op="sumsq"),
+                                     lambda: torch.linalg.vector_norm(a, 2, dim=0),
+                                     full, N, "col"),
+                "col_reduce_lower": (lambda: cn.col_reduce(a, cn._MODE_LOWER, op="sum"),
+                                     lambda: cn.col_reduce_plain(a, cn._MODE_LOWER, op="sum"),
+                                     None, lower, N, "col"),
+                "genorm_fro": (lambda: cn.genorm(a, "fro"), None,
+                               lambda: torch.linalg.matrix_norm(a, "fro"), full, 1, "col"),
+                "genorm_one": (lambda: cn.genorm(a, "one"), None,
+                               lambda: torch.linalg.matrix_norm(a, 1), full, 1, "col"),
+                "genorm_inf": (lambda: cn.genorm(a, "inf"), None,
+                               lambda: torch.linalg.matrix_norm(a, float("inf")), full, 1,
+                               "row"),
+            })
+        for name, (kern, plain, lib, elems, out_len, kind) in rows.items():
+            name = name if dtype == torch.float32 else f"{name}_f64"
+            b_ms, b_by = bound(elems, out_len, dtype)
+            ks, ls = interleaved(kern, lib)
+            r = {"ms": statistics.median(ks), "ms_min": min(ks), "ms_max": max(ks),
+                 "library_ms": statistics.median(ls) if ls else None,
+                 "library_ms_min": min(ls) if ls else None,
+                 "library_ms_max": max(ls) if ls else None,
+                 "plain_ms": time_ms(plain) if plain else None,
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "vector_width": cn.kernel_plan(N, N, dtype, kind,
+                                                aligned=cn.is_aligned(a))["vector_width"]}
+            r["library_ratio"] = r["ms"] / r["library_ms"] if ls else None
+            r["fraction_of_bound"] = b_ms / r["ms"]
+            out[name] = r
+            for key, v in r.items():
+                say(f"time_{name}_{key}", v)
+        del a, rows
+        torch.cuda.empty_cache()
     return out
 
 
@@ -410,6 +488,10 @@ def full_path() -> dict:
     B = torch.randn((N, NRHS), generator=gen, device="cuda", dtype=torch.float32)
     torch.cuda.synchronize()
     say("main_setup_s", time.perf_counter() - t0)
+    for kind in ("col", "row"):
+        vec = cn.kernel_plan(N, N, A.dtype, kind, aligned=cn.is_aligned(A))["vector_width"]
+        say(f"variant_main_path_matrix_{kind}_vector_width", vec)
+        require(vec == 4, f"the main path's matrix takes {vec}-element loads")
     keep = A.clone()
     torch.cuda.reset_peak_memory_stats()
     for k in cn.LAUNCHES:
@@ -453,6 +535,7 @@ def main() -> int:
             "max_rel_err": stats[name]["max_rel_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_ratio": t["library_ratio"], "vector_width": t["vector_width"],
         })
     say("total_s", time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

@@ -5,9 +5,12 @@ These replace the JAX package's two Pallas TPU kernels
 (``slate_tpu/ops/pallas_norms.py``): ``col_reduce`` (``pl.pallas_call`` at :202) and
 ``row_sums`` (at :243).  Each wrapper takes a 2-D real f32/f64 tensor with unit
 column stride (any row stride), applies one of five triangle masks and the
-unit-diagonal fill in registers, and reads the matrix once.  Bound on an H100 SXM:
-the bytes, ``m·n·itemsize / 3.35 TB/s`` (about 0.32 ms at 16384² f32); see the note
-at the top of ``csrc/norms.cu`` for what the design does about it.
+unit-diagonal fill in registers, reads the matrix once with 16-byte loads where
+the tensor's base and row pitch are 16-byte aligned (1-element loads otherwise),
+and returns the result from one launch: the splits of the reduced dimension are
+folded inside it.  Bound on an H100 SXM: the bytes, ``m·n·itemsize / 3.35 TB/s``
+(about 0.32 ms at 16384² f32); see the note at the top of ``csrc/norms.cu`` for
+what the design does about it.
 
 Routing: a CPU tensor takes the plain version (that is what the CPU tests check); a
 CUDA tensor launches the kernel or raises — there is no fallback.  The kernels are
@@ -24,7 +27,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,11 +44,12 @@ _MODES = (_MODE_GE, _MODE_LOWER, _MODE_UPPER, _MODE_LOWER_STRICT, _MODE_UPPER_ST
 _OPS = {"sum": 0, "max": 1, "sumsq": 2}
 
 # launch geometry (must match csrc/norms.cu)
-_COL_TILE = 32          # columns per col_reduce block
-_ROW_LANES = 8          # row lanes per col_reduce block
-_ROWS_PER_BLOCK = 8     # rows (one warp each) per row_sums block
+_THREADS = 256          # threads per block, both kernels
+_WARPS = _THREADS // 32  # col_reduce: row lanes per block; row_sums: up to 8 rows
+_UNROLL = 8             # loads in flight per thread
+_LOAD_BYTES = 16        # the vector load
 H100_SMS = 132          # H100 SXM streaming multiprocessors (kernel_plan's default)
-_BLOCKS_PER_SM = 32     # blocks wanted per SM and launch: several waves of 6-8 blocks
+_BLOCKS_PER_SM = 32     # blocks wanted per SM and launch: several waves of 4-8 blocks
                         # per SM, so a partly filled last wave costs little
 _MIN_STRIP = 256        # fewest rows (col) / columns (row) one split walks
 _MAX_SPLITS = 65535     # gridDim.y limit
@@ -63,6 +67,9 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file
 _lib = None
 _lib_lock = threading.Lock()
 _sm_counts: Dict[int, int] = {}     # CUDA device index -> multiprocessor count
+# (device index, stream) -> the int32 tile counters of the in-launch fold; the
+# kernels leave them at 0, so one zero fill per stream serves every later call
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
 BUILD_LOG = ""
 
 
@@ -79,53 +86,98 @@ def _sm_count(device: torch.device) -> int:
     return _sm_counts[idx]
 
 
-def _launch(m: int, n: int, kind: str,
-            sms: int) -> Tuple[Tuple[int, int], Tuple[int, ...], int]:
-    """Launch geometry of ``kind`` ('col' | 'row') at (m, n) on a card with
-    ``sms`` multiprocessors: the ONE source of truth for the wrappers and
-    :func:`kernel_plan`.
+def _aligned(ptr: int, lda: int, itemsize: int) -> bool:
+    """Whether every row of a matrix at byte address ``ptr`` with row stride
+    ``lda`` (elements) starts on a 16-byte boundary: what the vector loads need."""
+    return ptr % _LOAD_BYTES == 0 and (lda * itemsize) % _LOAD_BYTES == 0
 
-    Returns (grid, block, per): ``per`` rows (col) or columns (row) each split of
-    the reduced dimension covers; ``grid[1]`` is the split count."""
+
+def _vec_width(itemsize: int, aligned: bool) -> int:
+    """Elements per load: one 16-byte load (4 f32, 2 f64) where the rows are
+    16-byte aligned, else 1."""
+    return _LOAD_BYTES // itemsize if aligned else 1
+
+
+class _Geometry(NamedTuple):
+    grid: Tuple[int, int]    # (tiles of the kept dimension, splits of the reduced one)
+    block: Tuple[int]
+    tile: int                # columns (col) or rows (row) one block keeps
+    vec: int                 # elements per load
+    wpr: int                 # row_sums: warps that share a row (col_reduce: 1)
+    per: int                 # rows (col) or columns (row) one split covers
+    fold: str                # "none" (one split) or "last_block"
+
+
+def _launch(m: int, n: int, kind: str, sms: int, vec: int) -> _Geometry:
+    """Launch geometry of ``kind`` ('col' | 'row') at (m, n) with ``vec``
+    elements per load on a card with ``sms`` multiprocessors: the ONE source of
+    truth for the wrappers and :func:`kernel_plan`.
+
+    A col_reduce block is one warp of ``vec``-column groups wide and has 8 row
+    lanes.  A row_sums block gives each of its rows a team of ``wpr`` warps:
+    the fewest (a power of 2, at most 8) whose 8 loads in flight per thread
+    span the row, so a long row is one block's (4 KB contiguous per block load
+    step) and short rows share a block 8 to 1.  The reduced dimension is split
+    until there are about ``_BLOCKS_PER_SM`` blocks per SM, at a multiple of the
+    8 row lanes (col) or of one load step of a row's team, 32 x ``wpr`` x ``vec``
+    columns (row), and the last block of each tile folds the splits inside the
+    launch."""
+    wpr = 1
     if kind == "col":
-        tiles, extent, quantum = _ceil_div(n, _COL_TILE), m, _ROW_LANES
-        block = (_COL_TILE, _ROW_LANES)
+        tile = 32 * vec
+        tiles, extent, quantum = _ceil_div(n, tile), m, _WARPS
     elif kind == "row":
-        tiles, extent, quantum = _ceil_div(m, _ROWS_PER_BLOCK), n, 32
-        block = (32 * _ROWS_PER_BLOCK,)
+        while wpr < _WARPS and wpr * 32 * vec * _UNROLL < n:
+            wpr *= 2
+        tile = _WARPS // wpr
+        tiles, extent, quantum = _ceil_div(m, tile), n, 32 * wpr * vec
     else:
         raise ValueError(f"kind must be 'col' or 'row', got {kind!r}")
     splits = _ceil_div(_BLOCKS_PER_SM * sms, max(tiles, 1))
     splits = max(1, min(splits, _ceil_div(extent, _MIN_STRIP), _MAX_SPLITS))
     per = max(quantum, _ceil_div(_ceil_div(extent, splits), quantum) * quantum)
     splits = max(1, _ceil_div(extent, per))
-    return (tiles, splits), block, per
+    return _Geometry((tiles, splits), (_THREADS,), tile, vec, wpr, per,
+                     "last_block" if splits > 1 else "none")
 
 
 def kernel_plan(m: int, n: int, dtype=torch.float32, kind: str = "col",
-                sms: int = H100_SMS) -> dict:
+                sms: int = H100_SMS, aligned: bool = True) -> dict:
     """Launch plan of the kernel at (m, n) on a card with ``sms``
-    multiprocessors, from the same helper the wrappers launch with: grid, block, the per-split extent, the partial's shape, the
-    bytes model (``bytes_in`` = m·n·itemsize: no padding, each element read
-    once; ``bytes_out`` the partial the kernel writes), ``single_pass`` (the
-    splits tile the reduced dimension exactly once and the blocks cover the
-    kept dimension) and ``bound_ms``, the least time an H100 SXM needs to read
-    the matrix once and write the length-n (col) or length-m (row) result."""
+    multiprocessors, for an input whose rows are 16-byte ``aligned`` (the
+    wrappers test ``data_ptr()`` and the row pitch), from the same helper the
+    wrappers launch with: grid, block, the tile a block keeps, the
+    ``vector_width`` (elements per load), ``warps_per_row`` (row_sums), the
+    per-split extent, the ``fold`` of the splits (``"last_block"``: inside the
+    launch; ``"none"``: one split), ``launches_per_call`` (1), the result's
+    shape, the bytes model
+    (``bytes_in`` = m·n·itemsize: no padding, each element read once;
+    ``bytes_out`` the result plus the fold's scratch, the (splits, kept)
+    partial and an int32 counter per tile), ``single_pass`` (the splits tile
+    the reduced dimension exactly once and the blocks cover the kept
+    dimension) and ``bound_ms``, the least time an H100 SXM needs to read the
+    matrix once and write the length-n (col) or length-m (row) result."""
     itemsize = torch.empty((), dtype=dtype).element_size()
-    grid, block, per = _launch(m, n, kind, sms)
-    extent, kept, tile = (m, n, _COL_TILE) if kind == "col" else (n, m, _ROWS_PER_BLOCK)
-    splits = grid[1]
+    g = _launch(m, n, kind, sms, _vec_width(itemsize, aligned))
+    extent, kept = (m, n) if kind == "col" else (n, m)
+    tiles, splits = g.grid
     bytes_in = m * n * itemsize
-    covered = sum(max(0, min(per, extent - s * per)) for s in range(splits))
+    scratch = splits * kept * itemsize + tiles * 4 if splits > 1 else 0
+    covered = sum(max(0, min(g.per, extent - s * g.per)) for s in range(splits))
     return {
-        "grid": grid,
-        "block": block,
-        "split_extent": per,
-        "out_shape": (splits, kept),
+        "grid": g.grid,
+        "block": g.block,
+        "tile": g.tile,
+        "vector_width": g.vec,
+        "warps_per_row": g.wpr,
+        "split_extent": g.per,
+        "fold": g.fold,
+        "launches_per_call": 1,
+        "out_shape": (kept,),
         "bytes_in": bytes_in,
-        "bytes_out": splits * kept * itemsize,
-        "single_pass": (covered == extent and per * (splits - 1) < max(extent, 1)
-                        and (grid[0] - 1) * tile < max(kept, 1) <= grid[0] * tile),
+        "bytes_out": kept * itemsize + scratch,
+        "single_pass": (covered == extent and g.per * (splits - 1) < max(extent, 1)
+                        and (tiles - 1) * g.tile < max(kept, 1) <= tiles * g.tile),
         "bound_ms": (bytes_in + kept * itemsize) / HBM_BYTES_PER_S * 1e3,
     }
 
@@ -213,11 +265,11 @@ def build() -> str:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         for name in ("slate_col_reduce_f32", "slate_col_reduce_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [p, i64, i64, i64, i32, i32, i32, i64, i32, p, p]
+            fn.argtypes = [p, i64, i64, i64, i32, i32, i32, i64, i32, i32, p, p, p, p]
             fn.restype = i32
         for name in ("slate_row_sums_f32", "slate_row_sums_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [p, i64, i64, i64, i32, i32, i64, i32, p, p]
+            fn.argtypes = [p, i64, i64, i64, i32, i32, i64, i32, i32, i32, p, p, p, p]
             fn.restype = i32
         _lib = lib
         return path
@@ -236,12 +288,49 @@ def _check_input(a: torch.Tensor, mode: int, what: str) -> str:
     return "f32" if a.dtype == torch.float32 else "f64"
 
 
-def _run(fn, a: torch.Tensor, *args) -> None:
+def is_aligned(a: torch.Tensor) -> bool:
+    """Whether the kernels read ``a`` with 16-byte loads (its base and row
+    pitch are 16-byte aligned); otherwise they take 1-element loads."""
+    return _aligned(a.data_ptr(), a.stride(0), a.element_size())
+
+
+def _counter_buffer(device: torch.device, stream: int, size: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < size:
+        buf = torch.zeros(size, dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
+
+
+def _run(name: str, kind: str, a: torch.Tensor, mode: int, *args) -> torch.Tensor:
+    """Launch ``name``'s kernel on ``a`` with the mask ``mode`` and ``args``
+    (unit_diag[, op]); return the length-n (col) or length-m (row) result."""
+    suffix = _check_input(a, mode, name)
+    m, n = a.shape
+    kept = n if kind == "col" else m
+    if m == 0 or n == 0:
+        return torch.zeros(kept, dtype=a.dtype, device=a.device)
+    build()
+    g = _launch(m, n, kind, _sm_count(a.device),
+                _vec_width(a.element_size(), is_aligned(a)))
+    out = torch.empty(kept, dtype=a.dtype, device=a.device)
+    partial: Optional[torch.Tensor] = None
+    counters: Optional[torch.Tensor] = None
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(a.data_ptr(), *args, stream)
+        if g.grid[1] > 1:
+            partial = torch.empty((g.grid[1], kept), dtype=a.dtype, device=a.device)
+            counters = _counter_buffer(a.device, stream, g.grid[0])
+        rc = getattr(_lib, f"slate_{name}_{suffix}")(
+            a.data_ptr(), m, n, a.stride(0), mode, *args, g.per, g.grid[1], g.vec,
+            *((g.wpr,) if kind == "row" else ()),
+            None if partial is None else partial.data_ptr(),
+            None if counters is None else counters.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
         raise SlateError(f"CUDA norm kernel launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
+    return out
 
 
 def col_reduce(a: torch.Tensor, mode: int = _MODE_GE, unit_diag: bool = False,
@@ -253,19 +342,7 @@ def col_reduce(a: torch.Tensor, mode: int = _MODE_GE, unit_diag: bool = False,
         return col_reduce_plain(a, mode, unit_diag, op)
     if op not in _OPS:
         raise ValueError(f"unknown op {op!r}")
-    suffix = _check_input(a, mode, "col_reduce")
-    m, n = a.shape
-    if m == 0 or n == 0:
-        return torch.zeros(n, dtype=a.dtype, device=a.device)
-    build()
-    grid, _, per = _launch(m, n, "col", _sm_count(a.device))
-    part = torch.empty((grid[1], n), dtype=a.dtype, device=a.device)
-    _run(getattr(_lib, f"slate_col_reduce_{suffix}"), a, m, n, a.stride(0), mode,
-         int(bool(unit_diag)), _OPS[op], per, grid[1], part.data_ptr())
-    LAUNCHES["col_reduce"] += 1
-    if grid[1] == 1:
-        return part[0]
-    return torch.amax(part, dim=0) if op == "max" else torch.sum(part, dim=0)
+    return _run("col_reduce", "col", a, mode, int(bool(unit_diag)), _OPS[op])
 
 
 def row_sums(a: torch.Tensor, mode: int = _MODE_GE,
@@ -275,17 +352,7 @@ def row_sums(a: torch.Tensor, mode: int = _MODE_GE,
     3.35 TB/s.  Length-m result in a's dtype."""
     if not a.is_cuda:
         return row_sums_plain(a, mode, unit_diag)
-    suffix = _check_input(a, mode, "row_sums")
-    m, n = a.shape
-    if m == 0 or n == 0:
-        return torch.zeros(m, dtype=a.dtype, device=a.device)
-    build()
-    grid, _, per = _launch(m, n, "row", _sm_count(a.device))
-    part = torch.empty((grid[1], m), dtype=a.dtype, device=a.device)
-    _run(getattr(_lib, f"slate_row_sums_{suffix}"), a, m, n, a.stride(0), mode,
-         int(bool(unit_diag)), per, grid[1], part.data_ptr())
-    LAUNCHES["row_sums"] += 1
-    return part[0] if grid[1] == 1 else torch.sum(part, dim=0)
+    return _run("row_sums", "row", a, mode, int(bool(unit_diag)))
 
 
 def genorm(a: torch.Tensor, which: str, mode: int = _MODE_GE,

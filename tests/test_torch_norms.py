@@ -271,97 +271,244 @@ def test_real_2d_norms_take_the_kernel_dispatch_on_cpu(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def _replay(a: np.ndarray, kind: str, mode: int, unit: bool):
-    """The CUDA kernels' index arithmetic (csrc/norms.cu: the mask turned into
-    loop bounds, the unit diagonal skipped and counted as 1, the lanes and
-    splits of the launch plan) replayed on the host for op="sum".  Returns
-    (result, reads), reads[i, j] counting the loads of a[i, j]."""
-    m, n = a.shape
+_KEEP = {cn._MODE_GE: lambda r, c: True, cn._MODE_LOWER: lambda r, c: r >= c,
+         cn._MODE_UPPER: lambda r, c: r <= c, cn._MODE_LOWER_STRICT: lambda r, c: r > c,
+         cn._MODE_UPPER_STRICT: lambda r, c: r < c}
+
+
+def _replay(buf: np.ndarray, offset: int, shape, lda: int, kind: str, mode: int,
+            unit: bool, itemsize: int):
+    """The CUDA kernels' index arithmetic (csrc/norms.cu) replayed on the host for
+    op="sum": the launch plan's tiles and splits, each thread's groups of V
+    columns (col) or team share of a row's V-element pieces (row), the mask as
+    loop bounds, the per-element band (col) or ragged head, ragged tail and
+    diagonal group (row), the unit diagonal counted as 1 in its split, and the
+    in-launch fold of the splits in the kernel's order.  ``buf`` is a flat array
+    holding the (m, n) matrix at ``offset`` with row stride ``lda``; the vector
+    width follows from ``offset``, ``lda`` and ``itemsize`` as if ``buf`` began
+    on a 16-byte boundary, and every V-wide load is asserted 16-byte aligned.
+    Returns (result, reads, plan): reads[i] counts the loads of buf[i]."""
+    m, n = shape
     col = kind == "col"
-    plan = cn.kernel_plan(m, n, kind=kind)
-    splits, per = plan["grid"][1], plan["split_extent"]
-    stride = cn._ROW_LANES if col else 32
+    dtype = {4: torch.float32, 8: torch.float64}[itemsize]
+    plan = cn.kernel_plan(m, n, dtype, kind=kind,
+                          aligned=cn._aligned(offset * itemsize, lda, itemsize))
+    V, W = plan["vector_width"], plan["tile"]
+    tiles, splits = plan["grid"]
+    per = plan["split_extent"]
     kept = n if col else m
-    reads = np.zeros((m, n), np.int64)
+    reads = np.zeros(buf.size, np.int64)
     part = np.zeros((splits, kept))
+
+    pending = {}                 # width -> flat indices of the loads' first elements
+
+    def load(first, width, s):
+        """Loads of ``width`` elements from flat indices ``first`` by split s."""
+        pending.setdefault(width, []).append(np.asarray(first, np.int64).ravel())
+
+    def flush(s):
+        for width, firsts in pending.items():
+            first = np.concatenate(firsts)
+            if width > 1:
+                assert (first * itemsize % 16 == 0).all()
+            flat = (first[:, None] + np.arange(width)).ravel()
+            np.add.at(reads, flat, 1)
+            rel = flat - offset
+            np.add.at(part[s], rel % lda if col else rel // lda, np.abs(buf[flat]))
+        pending.clear()
+
+    def strided(lo, hi, first_ranks, stride):
+        """The indices lo + rank, lo + rank + stride, ... < hi of every rank."""
+        ks = (lo + np.asarray(first_ranks))[:, None] + stride * np.arange(
+            max(0, -(-(hi - lo) // stride)))
+        return ks[ks < hi]
+
     for s in range(splits):
-        k0, k1 = s * per, min(s * per + per, m if col else n)
-        for line in range(kept):
-            lo, hi = k0, k1
-            # col: line is column c, k a row; row: line is row r, k a column
-            low_k = {cn._MODE_LOWER: line, cn._MODE_LOWER_STRICT: line + 1}
-            high_k = {cn._MODE_UPPER: line + 1, cn._MODE_UPPER_STRICT: line}
-            if not col:
-                low_k = {cn._MODE_UPPER: line, cn._MODE_UPPER_STRICT: line + 1}
-                high_k = {cn._MODE_LOWER: line + 1, cn._MODE_LOWER_STRICT: line}
-            lo = max(lo, low_k.get(mode, lo))
-            hi = min(hi, high_k.get(mode, hi))
-            diag = line if unit and k0 <= line < k1 else -1
-            base = k0 + np.arange(stride)                 # one entry per lane
-            own = (diag >= base) & ((diag - base) % stride == 0)
-            segs = ((np.full(stride, lo), np.where(own, min(hi, diag), hi)),
-                    (np.where(own, max(lo, diag + 1), hi), np.full(stride, hi)))
-            total = float(own.sum())
-            for b, e in segs:
-                first = np.where(b <= base, base,
-                                 base + -(-(b - base) // stride) * stride)
-                ks = first[:, None] + stride * np.arange(-(-per // stride) + 1)
-                ks = ks[ks < e[:, None]]
-                idx = (ks, line) if col else (line, ks)
-                np.add.at(reads, idx, 1)
-                total += np.abs(a[idx]).sum()
-            part[s, line] = total
-    return part.sum(axis=0), reads
+        if col:
+            r0, r1 = s * per, min(m, s * per + per)
+            below = mode in (cn._MODE_GE, cn._MODE_UPPER, cn._MODE_UPPER_STRICT)
+            above = mode in (cn._MODE_GE, cn._MODE_LOWER, cn._MODE_LOWER_STRICT)
+            for c0 in range(0, tiles * W, V):          # one thread's column group
+                if c0 >= n:
+                    continue
+                nv = min(V, n - c0)
+                for lo, hi in ((r0, min(r1, c0) if below else r0),
+                               (max(r0, c0 + V), r1 if above else r0)):
+                    rows = strided(lo, hi, range(cn._WARPS), cn._WARPS)
+                    first = offset + rows * lda + c0
+                    if nv == V:
+                        load(first, V, s)
+                    else:
+                        for j in range(nv):
+                            load(first + j, 1, s)
+                b0, b1 = max(r0, c0), min(r1, c0 + V)
+                for r in range(b0, min(b1, b0 + cn._WARPS)):   # one band row a warp
+                    for c in range(c0, c0 + nv):
+                        if _KEEP[mode](r, c) and not (unit and r == c):
+                            load(offset + r * lda + c, 1, s)
+                for c in range(c0, c0 + nv):
+                    if unit and r0 <= c < r1:
+                        part[s, c] += 1
+            flush(s)
+        else:
+            c_lo, c_hi = s * per, min(n, s * per + per)
+            team = 32 * plan["warps_per_row"]
+            for r in range(m):
+                lo, hi = c_lo, c_hi
+                if mode == cn._MODE_LOWER:
+                    hi = min(hi, r + 1)
+                if mode == cn._MODE_LOWER_STRICT:
+                    hi = min(hi, r)
+                if mode == cn._MODE_UPPER:
+                    lo = max(lo, r)
+                if mode == cn._MODE_UPPER_STRICT:
+                    lo = max(lo, r + 1)
+                A = min(-(-lo // V) * V, hi)
+                B = max(hi // V * V, A)
+                g = r // V * V
+                hole = A <= g and g + V <= B
+                for s0, s1 in ((A, g if hole else B), (g + V if hole else B, B)):
+                    groups = strided(0, (s1 - s0) // V, range(team), team)
+                    load(offset + r * lda + s0 + groups * V, V, s)
+                for p0, p1 in ((lo, A), (B, hi), (g, g + V if hole else g)):
+                    cs = strided(p0, p1, range(team), team)
+                    load(offset + r * lda + cs[~(unit & (cs == r))], 1, s)
+                if unit and c_lo <= r < c_hi:
+                    part[s, r] += 1
+        flush(s)
+    # the fold: kThreads / W chunks of consecutive splits, each in split order, then
+    # the chunks in a pairwise tree
+    K = cn._THREADS // W
+    bounds = [(k * splits // K, (k + 1) * splits // K) for k in range(K)]
+    assert [i for lo, hi in bounds for i in range(lo, hi)] == list(range(splits))
+    chunks = []
+    for lo, hi in bounds:
+        acc = np.zeros(kept)
+        for i in range(lo, hi):
+            acc = acc + part[i]
+        chunks.append(acc)
+    while len(chunks) > 1:
+        half = len(chunks) // 2
+        chunks = [chunks[k] + chunks[k + half] for k in range(half)]
+    return (part[0] if splits == 1 else chunks[0]), reads, plan
+
+
+def _check_replay(parent_shape, rows, cols, kind: str):
+    """Replay both kernels' loops on ``parent[rows, cols]`` for f32 and f64 widths,
+    every mask mode and unit_diag: every kept element of the view is loaded
+    exactly once; masked-out elements, a unit diagonal and everything outside
+    the view never; the result is the plain version's."""
+    parent = _sample(parent_shape, np.float64, seed=31)
+    view = parent[rows, cols]
+    m, n = view.shape
+    lda = parent_shape[1]
+    offset = (rows.start or 0) * lda + (cols.start or 0)
+    r, c = np.indices((m, n))
+    keep = {cn._MODE_GE: np.ones((m, n), bool), cn._MODE_LOWER: r >= c,
+            cn._MODE_UPPER: r <= c, cn._MODE_LOWER_STRICT: r > c,
+            cn._MODE_UPPER_STRICT: r < c}
+    widths = set()
+    for itemsize in (4, 8):
+        for mode in MODES:
+            for unit in (False, True):
+                got, reads, plan = _replay(parent.ravel(), offset, (m, n), lda, kind,
+                                           mode, unit, itemsize)
+                want = np.zeros(parent.size, np.int64)
+                want.reshape(parent_shape)[rows, cols] = keep[mode] & ~((r == c) & unit)
+                np.testing.assert_array_equal(reads, want)
+                plain = (cn.col_reduce_plain if kind == "col" else cn.row_sums_plain)(
+                    torch.from_numpy(view), mode, unit)
+                np.testing.assert_allclose(got, plain.numpy(), rtol=1e-12)
+        widths.add(plan["vector_width"])
+        assert plan["single_pass"] and plan["launches_per_call"] == 1
+        assert plan["bytes_in"] == m * n * itemsize    # no padding is read
+        assert plan["out_shape"] == (n if kind == "col" else m,)
+        assert plan["fold"] == ("last_block" if plan["grid"][1] > 1 else "none")
+    return widths
 
 
 @pytest.mark.parametrize("kind", ["col", "row"])
 @pytest.mark.parametrize("shape", SHAPES + [(700, 40), (40, 700), (1, 1)], ids=str)
 def test_kernel_index_arithmetic_reads_each_kept_element_once(shape, kind):
-    """Replaying the kernels' loops: every kept element is loaded exactly
-    once, masked-out elements and a unit diagonal never, and the result is
-    the plain version's."""
+    """Replaying the kernels' loops on each shape, contiguous (16-byte loads
+    where the row pitch allows, else 1-element loads) and inside a parent
+    whose row pitch is padded to 16 bytes (16-byte loads, a ragged right edge
+    where n % V != 0): every kept element is loaded exactly once, masked-out
+    elements, a unit diagonal and the padding never, and the result is the
+    plain version's, for f32 and f64 widths."""
     m, n = shape
-    plan = cn.kernel_plan(m, n, torch.float32, kind=kind)
-    assert plan["single_pass"]
-    assert plan["bytes_in"] == m * n * 4          # no padding is read
-    assert plan["out_shape"] == (plan["grid"][1], n if kind == "col" else m)
-    a = _sample(shape, np.float64, seed=31)
-    r, c = np.indices(shape)
-    keep = {cn._MODE_GE: np.ones(shape, bool), cn._MODE_LOWER: r >= c,
-            cn._MODE_UPPER: r <= c, cn._MODE_LOWER_STRICT: r > c,
-            cn._MODE_UPPER_STRICT: r < c}
-    for mode in MODES:
-        for unit in (False, True):
-            got, reads = _replay(a, kind, mode, unit)
-            want_reads = keep[mode] & ~((r == c) & unit)
-            np.testing.assert_array_equal(reads, want_reads.astype(np.int64))
-            plain = (cn.col_reduce_plain if kind == "col" else cn.row_sums_plain)(
-                torch.from_numpy(a), mode, unit)
-            np.testing.assert_allclose(got, plain.numpy(), rtol=1e-12)
+    _check_replay(shape, slice(0, m), slice(0, n), kind)
+    padded = _check_replay((m, -(-n // 4) * 4), slice(0, m), slice(0, n), kind)
+    assert padded == {2, 4}                            # double2 and float4 loads
+
+
+@pytest.mark.parametrize("kind", ["col", "row"])
+@pytest.mark.parametrize("view", [
+    ("unaligned", (60, 53), slice(2, 60), slice(1, 30)),
+    ("odd-width", (45, 40), slice(0, 45), slice(0, 37)),
+    ("wide-unaligned", (20, 1100), slice(0, 20), slice(3, 1003)),
+    ("tall-odd-width", (600, 28), slice(0, 600), slice(0, 27)),
+], ids=lambda v: v[0])
+def test_kernel_index_arithmetic_on_strided_views(view, kind):
+    """Views whose row stride exceeds their width: an unaligned base or pitch
+    takes the 1-element instantiation, an aligned one the 16-byte loads with
+    a ragged edge; nothing past the view's width is read (the replay counts
+    every load in the parent), and several splits fold in the kernel's order."""
+    _, parent_shape, rows, cols = view
+    widths = _check_replay(parent_shape, rows, cols, kind)
+    assert widths == ({1} if view[0].endswith("unaligned") else {2, 4})
+
+
+def test_vector_width_follows_alignment():
+    """The wrappers choose 16-byte loads only where the base and the row pitch
+    of the tensor are 16-byte aligned (``is_aligned``), and kernel_plan reports
+    the choice."""
+    t = torch.zeros((16, 40), dtype=torch.float32)
+    assert cn.is_aligned(t) and not cn.is_aligned(t[:, 1:])
+    assert not cn.is_aligned(torch.zeros((5, 3), dtype=torch.float32))
+    assert cn.is_aligned(torch.zeros((5, 2), dtype=torch.float64))
+    assert not cn.is_aligned(torch.zeros((5, 3), dtype=torch.float64))
+    assert [cn._vec_width(4, True), cn._vec_width(8, True), cn._vec_width(4, False)] == [4, 2, 1]
+    for kind in ("col", "row"):
+        assert cn.kernel_plan(64, 64, torch.float32, kind)["vector_width"] == 4
+        assert cn.kernel_plan(64, 64, torch.float64, kind)["vector_width"] == 2
+        assert cn.kernel_plan(64, 64, torch.float32, kind, aligned=False)["vector_width"] == 1
 
 
 def test_plan_at_bench_shape():
-    """16384^2 f32, the size the main path runs: one pass, coalesced blocks,
-    and the bytes bound of an H100 SXM (about 0.32 ms)."""
+    """16384^2 f32, the size the main path runs: one pass and one launch with
+    16-byte loads; a col_reduce warp reads 512 contiguous bytes of a row
+    (128 columns) and folds its 33 splits inside the launch; a row_sums row
+    is one block's 8 warps; and the bytes bound of an H100 SXM (about
+    0.32 ms)."""
     for kind in ("col", "row"):
         plan = cn.kernel_plan(16384, 16384, torch.float32, kind=kind)
         assert plan["single_pass"]
         assert plan["bytes_in"] == 16384 * 16384 * 4
         assert 0.31 < plan["bound_ms"] < 0.33
-        assert int(np.prod(plan["block"])) == 256
-    assert cn.kernel_plan(16384, 16384, kind="col")["block"] == (32, 8)
+        assert plan["block"] == (256,)
+        assert plan["vector_width"] == 4 and plan["launches_per_call"] == 1
+    col = cn.kernel_plan(16384, 16384, kind="col")
+    assert col["tile"] == 128 and col["grid"] == (128, 33) and col["fold"] == "last_block"
+    row = cn.kernel_plan(16384, 16384, kind="row")
+    assert row["warps_per_row"] == 8 and row["grid"] == (16384, 1) and row["fold"] == "none"
+    assert row["bytes_out"] == 16384 * 4            # the result, no scratch
 
 
 @pytest.mark.parametrize("shape,kind", [((131072, 64), "col"), ((64, 70000), "row")],
                          ids=["tall-col", "wide-row"])
 def test_plan_splits_the_reduced_dimension_to_fill_the_card(shape, kind):
     """Tall-skinny (col) and short-wide (row) inputs split the reduced
-    dimension across gridDim.y so the blocks can fill 132 SMs."""
+    dimension across gridDim.y so the blocks can fill 132 SMs, and the last
+    block of each tile folds the splits inside the one launch (scratch: the
+    (splits, kept) partial and a counter per tile)."""
     m, n = shape
     plan = cn.kernel_plan(m, n, torch.float32, kind=kind)
     tiles, splits = plan["grid"]
     assert splits > 1 and tiles * splits >= cn.H100_SMS
     assert plan["single_pass"]
-    assert plan["bytes_out"] == splits * (n if kind == "col" else m) * 4
+    assert plan["fold"] == "last_block" and plan["launches_per_call"] == 1
+    kept = n if kind == "col" else m
+    assert plan["bytes_out"] == kept * 4 + splits * kept * 4 + tiles * 4
     f64 = cn.kernel_plan(m, n, torch.float64, kind=kind)
     assert f64["bytes_in"] == 2 * plan["bytes_in"]
