@@ -25,7 +25,20 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
 5. the main path at full width: the blocked SPD solve (``posv``, Tiled
    ``potrf``, nb=2048) of a 16384^2 f32 system with 10 right-hand sides, its
    norm-checked backward error (<= 50 eps sqrt(n)) and condition estimates,
-   with the kernels' launch counters set to 0 just before and read just after.
+   with the kernels' launch counters set to 0 just before and read just after;
+6. the general solvers at full width, the second main path, with the counters
+   set to 0 just before and read just after: ``gesv`` of a 16384^2 f32 system
+   (10 right-hand sides, partial pivoting) with its backward error, one- and
+   inf-norm ``gecondest`` and a singular copy; CALU ``getrf`` at 16384^2
+   (nb = ib = 2048) with the tournament and the pp panel, checked by probe
+   vectors; ``gels_cholqr`` and ``gels_qr`` at 131072 x 4096 f32 (16
+   right-hand sides) under the tester's normal-equations gate; ``posv_mixed``
+   and ``gesv_mixed`` at 16384^2 f64 (an f32 factor);
+7. at n = 4096 f64: ``gesv_nopiv``, ``gesv_rbt``, both GMRES-IR solvers,
+   ``getri``, the minimum-norm ``gels``, and one forced escalation per
+   escalation ladder (a zero pivot from a FaultPlan);
+8. at n = 512 f64: every new routine on the card against the port's CPU path
+   (solutions to 1e-10, ``info`` codes).
 
 The last lines are a JSON line of per-kernel numbers, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -48,6 +61,7 @@ import torch
 import slate_tpu_torch as slate
 from slate_tpu_torch.linalg import chol
 from slate_tpu_torch.ops import cuda_norms as cn
+from slate_tpu_torch.utils import trace
 
 N = 16384            # the potrf / norm bench size (bench.py:284,461)
 NB = 2048            # the Tiled potrf block (bench.py:304)
@@ -86,16 +100,26 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def _sync(t: torch.Tensor) -> None:
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
-
-
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _timed(device):
+    """A ``step(name, fn)`` that runs ``fn``, ends it in a device sync on the
+    card, and records its host seconds in the returned ``times``."""
+    times = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return r
+    return times, step
 
 
 # ---------------------------------------------------------------------------
@@ -112,15 +136,7 @@ def main_path(A: torch.Tensor, B: torch.Tensor, nb: int) -> dict:
     step ends in a device synchronisation)."""
     n = A.shape[-1]
     opts = {"target": "tiled", "block_size": nb}
-    out, times = {}, {}
-
-    def step(name, fn):
-        t0 = time.perf_counter()
-        r = fn()
-        _sync(A)
-        times[name] = time.perf_counter() - t0
-        return r
-
+    out, (times, step) = {}, _timed(A.device)
     Aw = slate.HermitianMatrix.from_array("lower", A, nb=nb)
     X, info = step("posv_s", lambda: slate.posv(Aw, slate.Matrix.from_array(B, nb=nb),
                                                 opts))
@@ -171,6 +187,316 @@ def spd(n: int, gen: torch.Generator, device, dtype) -> torch.Tensor:
     A = torch.matmul(M, M.T).div_(n)
     A.diagonal().add_(2.0)
     return A
+
+
+# ---------------------------------------------------------------------------
+# the general solvers (LU, least squares, mixed precision), through the public
+# API (any device)
+# ---------------------------------------------------------------------------
+
+# full width: gesv / CALU at the getrf bench size and blocking (bench.py:329-353),
+# least squares at the gels bench shape (bench.py:376-391), the mixed solves at
+# n = 16384 f64; the ladder checks at n = 4096
+GENERAL = {"n": N, "nrhs": NRHS, "calu_nb": 2048, "calu_ib": 2048,
+           "ls_m": 131072, "ls_n": 4096, "ls_nrhs": 16, "mixed_n": N}
+SMALL_N = 4096
+CHECK_N = 512
+PROBES = 4
+# each ladder run by run_ladder, and the fault site that breaks its first rung
+LADDER_CASES = (("gesv_nopiv", "getrf_nopiv", "dominant"),
+                ("gesv_mixed", "gesv_mixed", "general"),
+                ("posv_mixed", "posv_mixed", "spd"),
+                ("gesv_rbt", "getrf_nopiv", "general"))
+
+
+def randn(shape, dtype, device, seed: int) -> torch.Tensor:
+    """Standard normal data from a generator seeded with ``seed`` on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device, dtype=dtype)
+
+
+def gate(dtype, n: int) -> float:
+    """The tester's accept threshold, 50 eps sqrt(n) (testing/routines.py:75-79)."""
+    return 50.0 * torch.finfo(dtype).eps * math.sqrt(n)
+
+
+def fro(M) -> float:
+    """Frobenius norm through ``slate.norm`` (the col_reduce kernel on the card)."""
+    return float(slate.norm("fro", M))
+
+
+def backward_error(A, X, B) -> float:
+    """||B - A X||_F / (||A||_F ||X||_F), the residual by gemm
+    (testing/routines.py:342-355)."""
+    R = slate.gemm(-1.0, A, X, 1.0, B)
+    return fro(R) / (fro(A) * fro(X))
+
+
+def ls_residual(A, X, B) -> float:
+    """The tester's normal-equations residual ||A^H (A X - B)|| / (||A||^2 ||X||)
+    (testing/routines.py:537-549)."""
+    R = torch.matmul(A, X).sub_(B)
+    return fro(torch.matmul(A.mH, R)) / (fro(A) ** 2 * max(fro(X), 1e-10))
+
+
+def general_path(device, sizes: dict = GENERAL) -> dict:
+    """The general solvers at the widths in ``sizes`` on ``device``: gesv with
+    its backward error, condition estimates and a singular copy; CALU getrf
+    with both panel schemes, checked by probe vectors; gels_cholqr and gels_qr
+    under the tester's gate; posv_mixed and gesv_mixed in f64.  Every step ends
+    in a device synchronisation; returns the numbers, each step's host time,
+    and each factorization's pivot-conversion time (the ``pivots`` phase)."""
+    out, (times, step) = {}, _timed(device)
+    f32, f64 = torch.float32, torch.float64
+    n, k = sizes["n"], sizes["nrhs"]
+
+    A = randn((n, n), f32, device, SEED + 10)
+    B = randn((n, k), f32, device, SEED + 11)
+    Aw = slate.Matrix.from_array(A)               # getrf writes its factor here
+    X, perm, info = step("gesv_s", lambda: slate.gesv(Aw, B))
+    out["gesv_pivots_s"] = trace.last_phases("getrf")["pivots"]
+    out["gesv_info"] = int(info)
+    out["gesv_backward_error"] = step("gesv_residual_s", lambda: backward_error(A, X, B))
+    LU = Aw.array
+    for kind in ("one", "inf"):
+        out[f"gecondest_{kind}"] = step(f"gecondest_{kind}_s", lambda: float(
+            slate.gecondest(LU, perm, slate.norm(kind, A), norm_kind=kind)))
+    del Aw, LU, X
+    sing = A.clone()
+    sing[:, n // 3] = 0.0
+    out["singular_gesv_info"] = step("singular_gesv_s",
+                                     lambda: int(slate.gesv(sing, B)[2]))
+    del sing
+
+    a_fro = fro(A)
+    V = randn((n, PROBES), f32, device, SEED + 12)
+    AV = torch.matmul(A, V)
+    for panel in ("tournament", "pp"):
+        opts = {"method_lu": "calu", "block_size": sizes["calu_nb"],
+                "inner_blocking": sizes["calu_ib"], "lu_panel": panel}
+        LU, perm, info = step(f"calu_{panel}_s", lambda: slate.getrf(A, opts))
+        out[f"calu_{panel}_pivots_s"] = trace.last_phases("getrf_tntpiv")["pivots"]
+        out[f"calu_{panel}_info"] = int(info)
+        out[f"calu_{panel}_is_permutation"] = bool(torch.equal(
+            torch.sort(perm).values, torch.arange(n, device=perm.device)))
+        Uv = torch.matmul(torch.triu(LU), V)
+        LUv = torch.matmul(torch.tril(LU, -1), Uv).add_(Uv)
+        D = AV[perm].sub_(LUv)
+        out[f"calu_{panel}_probe_error"] = max(
+            fro(D[:, j:j + 1]) / (a_fro * fro(V[:, j:j + 1])) for j in range(PROBES))
+        del LU, Uv, LUv, D
+    del A, B, V, AV
+
+    m, ln, lk = sizes["ls_m"], sizes["ls_n"], sizes["ls_nrhs"]
+    A = randn((m, ln), f32, device, SEED + 13)
+    B = randn((m, lk), f32, device, SEED + 14)
+    for name in ("gels_cholqr", "gels_qr"):
+        X = step(f"{name}_s", lambda: getattr(slate, name)(A, B))
+        out[f"{name}_residual"] = ls_residual(A, X, B)
+        del X
+    del A, B
+
+    nm = sizes["mixed_n"]
+    B = randn((nm, k), f64, device, SEED + 15)
+    S = spd(nm, torch.Generator(device=device).manual_seed(SEED + 16), device, f64)
+    X, info, iters, rep = step("posv_mixed_s", lambda: slate.posv_mixed(
+        S, B, {"solve_report": True}))
+    out.update(posv_mixed_info=int(info), posv_mixed_iters=int(iters),
+               posv_mixed_chain=rep.fallback_chain,
+               posv_mixed_backward_error=backward_error(S, X, B))
+    del S, X
+    G = randn((nm, nm), f64, device, SEED + 17)
+    X, perm, info, iters, rep = step("gesv_mixed_s", lambda: slate.gesv_mixed(
+        G, B, {"solve_report": True}))
+    out.update(gesv_mixed_info=int(info), gesv_mixed_iters=int(iters),
+               gesv_mixed_chain=rep.fallback_chain,
+               gesv_mixed_pivots_s=trace.last_phases("gesv_mixed")["pivots"],
+               gesv_mixed_backward_error=backward_error(G, X, B))
+    out["times"] = times
+    return out
+
+
+def check_general_path(res: dict, sizes: dict = GENERAL) -> None:
+    n, f32, f64 = sizes["n"], torch.float32, torch.float64
+    require(res["gesv_info"] == 0, f"gesv info {res['gesv_info']}")
+    require(res["gesv_backward_error"] <= gate(f32, n),
+            f"gesv backward error {res['gesv_backward_error']} > {gate(f32, n)}")
+    for kind in ("one", "inf"):
+        require(0 < res[f"gecondest_{kind}"] <= 1, f"gecondest {kind} out of (0, 1]")
+    require(res["singular_gesv_info"] > 0, "a zero column reported info 0")
+    for panel in ("tournament", "pp"):
+        require(res[f"calu_{panel}_info"] == 0, f"CALU {panel} info")
+        require(res[f"calu_{panel}_is_permutation"], f"CALU {panel} perm")
+        require(res[f"calu_{panel}_probe_error"] <= gate(f32, n),
+                f"CALU {panel} probe error {res[f'calu_{panel}_probe_error']}")
+    ls_gate = 100.0 * gate(f32, max(sizes["ls_m"], sizes["ls_n"]))
+    for name in ("gels_cholqr", "gels_qr"):
+        require(res[f"{name}_residual"] <= ls_gate,
+                f"{name} residual {res[f'{name}_residual']} > {ls_gate}")
+    for name in ("posv_mixed", "gesv_mixed"):
+        require(res[f"{name}_info"] == 0, f"{name} info")
+        require(res[f"{name}_chain"] == ("mixed",), f"{name} chain {res[f'{name}_chain']}")
+        require(res[f"{name}_backward_error"] <= gate(f64, sizes["mixed_n"]),
+                f"{name} backward error {res[f'{name}_backward_error']}")
+
+
+def small_general(device, n: int = SMALL_N) -> dict:
+    """The remaining general solvers at n in f64: gesv_nopiv (diagonally
+    dominant), gesv_rbt, both GMRES-IR solvers (one right-hand side), getri,
+    the minimum-norm gels, and one forced escalation per ladder."""
+    out, (times, step) = {}, _timed(device)
+    f64 = torch.float64
+    mats = {"dominant": randn((n, n), f64, device, SEED + 20),
+            "general": randn((n, n), f64, device, SEED + 21),
+            "spd": spd(n, torch.Generator(device=device).manual_seed(SEED + 22), device, f64)}
+    mats["dominant"].diagonal().add_(float(n))
+    B = randn((n, NRHS), f64, device, SEED + 23)
+    b1 = B[:, :1].clone()
+
+    X, _, info, rep = step("gesv_nopiv_s", lambda: slate.gesv_nopiv(
+        mats["dominant"], B, {"solve_report": True}))
+    out.update(gesv_nopiv_info=int(info), gesv_nopiv_chain=rep.fallback_chain,
+               gesv_nopiv_backward_error=backward_error(mats["dominant"], X, B))
+    X, info, iters, rep = step("gesv_rbt_s", lambda: slate.gesv_rbt(
+        mats["general"], B, {"solve_report": True}))
+    out.update(gesv_rbt_info=int(info), gesv_rbt_iters=int(iters),
+               gesv_rbt_chain=rep.fallback_chain,
+               gesv_rbt_backward_error=backward_error(mats["general"], X, B))
+    X, _, info, restarts = step("gesv_mixed_gmres_s", lambda: slate.gesv_mixed_gmres(
+        mats["general"], b1))
+    out.update(gesv_mixed_gmres_info=int(info), gesv_mixed_gmres_restarts=int(restarts),
+               gesv_mixed_gmres_backward_error=backward_error(mats["general"], X, b1))
+    X, info, restarts = step("posv_mixed_gmres_s", lambda: slate.posv_mixed_gmres(
+        mats["spd"], b1))
+    out.update(posv_mixed_gmres_info=int(info), posv_mixed_gmres_restarts=int(restarts),
+               posv_mixed_gmres_backward_error=backward_error(mats["spd"], X, b1))
+    G = mats["general"]
+    LU, perm, info = slate.getrf(G)
+    inv = step("getri_s", lambda: slate.getri(LU, perm))
+    eye = torch.eye(n, dtype=f64, device=G.device)
+    out["getri_error"] = fro(torch.matmul(G, inv).sub_(eye)) / (fro(G) * fro(inv))
+    del LU, inv, eye
+    W = randn((n // 2, n), f64, device, SEED + 24)
+    BW = B[: n // 2]
+    X = step("gels_min_norm_s", lambda: slate.gels(W, BW))
+    out["gels_min_norm_residual"] = backward_error(W, X, BW)
+    # the minimum-norm solution W^H (W W^H)^{-1} B by the normal equations
+    x_mn = torch.matmul(W.mH, torch.cholesky_solve(BW, torch.linalg.cholesky(
+        torch.matmul(W, W.mH))))
+    out["gels_min_norm_vs_normal_equations"] = fro(X - x_mn) / fro(x_mn)
+
+    for routine, site, kind in LADDER_CASES:
+        plan = slate.FaultPlan([slate.FaultSpec(site, "zero_pivot", call_index=0,
+                                                index=7)])
+        with plan:
+            res = step(f"forced_{routine}_s", lambda: getattr(slate, routine)(
+                mats[kind], B, {"solve_report": True}))
+        rep = res[-1]
+        out[f"forced_{routine}"] = {
+            "chain": rep.fallback_chain, "recovered": rep.recovered, "info": rep.info,
+            "fired": plan.fired,
+            "backward_error": backward_error(mats[kind], res[0], B)}
+    out["times"] = times
+    return out
+
+
+def check_small_general(res: dict, n: int = SMALL_N) -> None:
+    g = gate(torch.float64, n)
+    for name in ("gesv_nopiv", "gesv_rbt", "gesv_mixed_gmres", "posv_mixed_gmres"):
+        require(res[f"{name}_info"] == 0, f"{name} info")
+        require(res[f"{name}_backward_error"] <= g,
+                f"{name} backward error {res[f'{name}_backward_error']} > {g}")
+    require(res["gesv_nopiv_chain"] == ("nopiv",), "gesv_nopiv escalated")
+    require(res["gesv_mixed_gmres_restarts"] >= 0 and res["posv_mixed_gmres_restarts"] >= 0,
+            "a GMRES-IR solve fell back to full precision")
+    require(res["getri_error"] <= g, f"getri error {res['getri_error']}")
+    require(res["gels_min_norm_residual"] <= g, "minimum-norm gels residual")
+    require(res["gels_min_norm_vs_normal_equations"] <= 1e-10,
+            "gels is not the minimum-norm solution")
+    for routine, site, _ in LADDER_CASES:
+        r = res[f"forced_{routine}"]
+        require(r["fired"] == ((site, "zero_pivot", 0),), f"{routine}: fault not fired")
+        require(r["chain"] == slate.robust.LADDERS[routine] and r["recovered"]
+                and r["info"] == 0, f"{routine}: forced escalation gave {r}")
+        require(r["backward_error"] <= g, f"{routine}: escalated solve {r}")
+
+
+def general_routines(device, n: int = CHECK_N) -> dict:
+    """Every new routine on ``device`` from the same numpy-seeded f64 inputs:
+    the solutions (or R / the inverse) and the info codes, for the card
+    against the port's CPU path."""
+    rng = np.random.default_rng(SEED + 30)
+
+    def t(a):
+        return torch.tensor(a, device=device)
+
+    g = rng.standard_normal((n, n))
+    dom = g + n * np.eye(n)
+    s = g @ g.T / n + 2 * np.eye(n)
+    b = rng.standard_normal((n, 3))
+    tall = rng.standard_normal((2 * n, n // 2))
+    btall = rng.standard_normal((2 * n, 3))
+    wide, bwide = tall.T[:, : n].copy(), btall[: n // 2].copy()
+    sing = dom.copy()
+    sing[:, 5] = sing[5, :] = 0.0
+    nan = dom.copy()
+    nan[9, 9] = np.nan
+    out = {}
+    for target in ("xla", "tiled"):
+        X, _, info = slate.gesv(t(g), t(b), {"target": target, "block_size": 64})
+        out[f"gesv_{target}"], out[f"gesv_{target}_info"] = X, int(info)
+    for panel in ("tournament", "pp"):
+        LU, perm, info = slate.getrf(t(g), {"method_lu": "calu", "block_size": 128,
+                                            "inner_blocking": 32, "lu_panel": panel})
+        out[f"calu_{panel}"] = slate.getrs(LU, perm, t(b))
+        out[f"calu_{panel}_info"] = int(info)
+    LU, perm, _ = slate.getrf(t(g))
+    for trans in ("t", "c"):
+        out[f"getrs_{trans}"] = slate.getrs(LU, perm, t(b), trans=trans)
+    out["getri"] = slate.getri(LU.clone(), perm)
+    for kind in ("one", "inf"):
+        anorm = np.abs(g).sum(0 if kind == "one" else 1).max()
+        out[f"gecondest_{kind}"] = slate.gecondest(LU, perm, anorm, norm_kind=kind)
+    X, _, info = slate.gesv_nopiv(t(dom), t(b))
+    out["gesv_nopiv"], out["gesv_nopiv_info"] = X, int(info)
+    X, _, info, _ = slate.gesv_mixed(t(g), t(b))
+    out["gesv_mixed"], out["gesv_mixed_info"] = X, int(info)
+    X, _, info, _ = slate.gesv_mixed_gmres(t(g), t(b[:, :1]))
+    out["gesv_mixed_gmres"], out["gesv_mixed_gmres_info"] = X, int(info)
+    X, info, _ = slate.posv_mixed(t(s), t(b))
+    out["posv_mixed"], out["posv_mixed_info"] = X, int(info)
+    X, info, _ = slate.posv_mixed_gmres(t(s), t(b[:, :1]))
+    out["posv_mixed_gmres"], out["posv_mixed_gmres_info"] = X, int(info)
+    X, info, _ = slate.gesv_rbt(t(g), t(b))
+    out["gesv_rbt"], out["gesv_rbt_info"] = X, int(info)
+    for method in ("qr", "cholqr"):
+        out[f"gels_{method}"] = slate.gels(t(tall), t(btall), {"method_gels": method})
+    out["gels_wide"] = slate.gels(t(wide), t(bwide))
+    out["cholqr_R"] = slate.cholqr(t(tall))[1]
+    out["tsqr_absR"] = slate.linalg.tsqr(t(tall), row_blocks=4)[1].abs()
+    for method in ("partialpiv", "calu", "nopiv"):
+        for name, bad in (("singular", sing), ("nan", nan)):
+            out[f"{method}_{name}_info"] = int(slate.getrf(t(bad), {
+                "method_lu": method, "block_size": 64, "inner_blocking": 16})[2])
+    return out
+
+
+def compare_general_routines(card: dict, host: dict) -> dict:
+    """Card against CPU: tensors to 1e-10 relative (Frobenius), info codes
+    identical (a NaN input's too: the card's library LU loses the NaN, and
+    ``lu._mark_lost_nan`` restores it).  Returns the relative difference of
+    each tensor."""
+    diffs = {}
+    for key, want in host.items():
+        got = card[key]
+        if isinstance(want, torch.Tensor):
+            got = got.cpu()
+            diffs[key] = float(torch.linalg.vector_norm(got - want)
+                               / torch.linalg.vector_norm(want))
+            require(diffs[key] <= 1e-10, f"{key}: card vs cpu {diffs[key]}")
+        else:
+            require(got == want, f"{key}: card {got}, cpu {want}")
+    return diffs
 
 
 # ---------------------------------------------------------------------------
@@ -515,6 +841,82 @@ def full_path() -> dict:
     return launches
 
 
+def calu_parts() -> dict:
+    """Device time (ms, CUDA events, 3 calls after warm-up) of the pieces the
+    full-width LUs are made of, at their shapes: the whole-matrix library LU
+    of gesv, one library panel LU of the pp scheme (the first, 16384 x 2048),
+    one tournament level of batched pair merges (4 x 4096 x 2048), one
+    2048-wide nopiv block factor, and the first trailing gemm."""
+    from slate_tpu_torch.linalg import lu
+    n, w = GENERAL["n"], GENERAL["calu_nb"]
+    A = randn((n, n), torch.float32, "cuda", SEED + 40)
+    pairs = A[: 4 * 2 * w, :w].reshape(4, 2 * w, w)
+    block = A[:w, :w] + w * torch.eye(w, device="cuda")
+    C = A[w:, w:].clone()
+    parts = {
+        "whole_lu_16384": lambda: lu._lu_factor(A),
+        "panel_lu_16384x2048": lambda: torch.linalg.lu_factor_ex(A[:, :w]),
+        "pair_merges_4x4096x2048": lambda: torch.linalg.lu_factor_ex(pairs),
+        "nopiv_block_2048": lambda: lu._lu_nopiv_blocked(block),
+        "trailing_gemm_14336x2048x14336": lambda: C.addmm_(A[w:, :w], A[:w, w:], alpha=-1),
+    }
+    return {name: time_ms(fn, reps=3) for name, fn in parts.items()}
+
+
+def _say_all(prefix: str, res: dict) -> None:
+    for key, v in res.items():
+        if key == "times":
+            for name, t in v.items():
+                say(f"{prefix}_{name}", t)
+        else:
+            say(f"{prefix}_{key}", v)
+
+
+def full_general_path() -> dict:
+    """The general solvers at full width, with the kernels' launch counters set
+    to 0 just before and read just after; then the n = 4096 checks and the
+    card against the CPU at n = 512 (outside the counted run)."""
+    torch.cuda.reset_peak_memory_stats()
+    for k in cn.LAUNCHES:
+        cn.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    res = general_path("cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(cn.LAUNCHES)
+    check_general_path(res)
+    _say_all("general", res)
+    n, m, ln = GENERAL["n"], GENERAL["ls_m"], GENERAL["ls_n"]
+    lu_flops, ls_flops = 2.0 * n ** 3 / 3.0, 2.0 * ln ** 2 * (m - ln / 3.0)
+    t = res["times"]
+    for name, flops in (("gesv", lu_flops), ("calu_tournament", lu_flops),
+                        ("calu_pp", lu_flops), ("gesv_mixed", lu_flops),
+                        ("posv_mixed", n ** 3 / 3.0), ("gels_cholqr", ls_flops),
+                        ("gels_qr", ls_flops)):
+        say(f"general_{name}_gflops", flops / t[f"{name}_s"] / 1e9)
+    say("general_wall_s", wall)
+    say("general_peak_memory_gib", torch.cuda.max_memory_allocated() / 2**30)
+    say("general_launches", json.dumps(launches))
+    for name, count in launches.items():
+        require(count > 0, f"{name} was not launched on the general path")
+
+    for name, ms in calu_parts().items():
+        say(f"general_part_{name}_ms", ms)
+
+    t0 = time.perf_counter()
+    small = small_general("cuda")
+    check_small_general(small)
+    _say_all("small", small)
+    say("small_wall_s", time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    diffs = compare_general_routines(general_routines("cuda"), general_routines("cpu"))
+    for key, d in diffs.items():
+        say(f"check_{key}_card_vs_cpu_rel", d)
+    say("check_wall_s", time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -524,13 +926,15 @@ def main() -> int:
     stats = kernel_phase()
     times = timing_phase()
     small_checks()
-    launches = full_path()
+    paths = {"posv": full_path(), "general": full_general_path()}
     kernels = []
     for name in ("col_reduce", "row_sums"):
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": sum(p[name] for p in paths.values()),
+            "launches_by_path": {path: p[name] for path, p in paths.items()},
             "max_abs_err": stats[name]["max_abs_err"],
             "max_rel_err": stats[name]["max_rel_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -3,11 +3,16 @@ algebra), for NVIDIA Hopper.
 
 The port has the public surface of ``slate_tpu`` for the routines it covers so far:
 the matrix wrappers and enums, the BLAS-3 and norm drivers, the Cholesky family
-(``potrf``/``potrs``/``posv``/``trtri``/``trtrm``/``potri``) and the condition
-estimators.  Entry points place new data on ``cuda`` unless a ``device`` is given;
-matrix and triangular norms of real f32/f64 data on the card run hand-written CUDA
-kernels (:mod:`slate_tpu_torch.ops.cuda_norms`).  It imports neither JAX nor the
-JAX package.
+(``potrf``/``potrs``/``posv``/``trtri``/``trtrm``/``potri`` and the
+mixed-precision ``posv_mixed``/``posv_mixed_gmres``), the LU family (``getrf``
+with partial, tournament (CALU) or no pivoting, ``getrs``/``gesv``/``getri`` and
+the ``gesv_nopiv``/``gesv_mixed``/``gesv_mixed_gmres``/``gesv_rbt`` ladders), the
+QR/least-squares family (``geqrf``/``gelqf``/``unmqr``/``unmlq``/``tsqr``/
+``cholqr``/``gels``), the condition estimators, and the escalation-ladder engine
+(:mod:`slate_tpu_torch.robust`).  Entry points place new data on ``cuda`` unless a
+``device`` is given; matrix and triangular norms of real f32/f64 data on the card
+run hand-written CUDA kernels (:mod:`slate_tpu_torch.ops.cuda_norms`).  It imports
+neither JAX nor the JAX package.
 """
 
 from .core import (BandMatrix, BaseMatrix, ConvergenceError,
@@ -23,10 +28,17 @@ from .blas import (add, col_norms, copy, gemm, gemmA, gemmC, hemm, hemmA,
                    hemmC, her2k, herk, norm, scale, scale_row_col, set,
                    set_from_function, set_lambdas, symm, syr2k, syrk, trmm,
                    trsm, trsmA, trsmB)
-from .linalg import (gecondest, norm1est, pocondest, posv, potrf, potri, potrs,
-                     trcondest, trtri, trtrm)
-from . import obs, robust
-from .robust import FaultPlan, FaultSpec, SolveReport, reduce_info
+# the JAX package's top-level names; the cores, the pivot encodings, tsqr,
+# rbt_generate and TriangularFactors live in .linalg, as they do there
+from .linalg import (cholqr, gecondest, gelqf, gels, gels_cholqr, gels_qr, geqrf,
+                     gerbt, gesv, gesv_mixed, gesv_mixed_gmres, gesv_nopiv,
+                     gesv_rbt, getrf, getrf_nopiv, getrf_tntpiv, getri, getri_oop,
+                     getrs, getrs_nopiv, norm1est, pocondest, posv, posv_mixed,
+                     posv_mixed_gmres, potrf, potri, potrs, trcondest, trtri,
+                     trtrm, unmlq, unmqr)
+from . import linalg, obs, robust
+from .robust import (FaultPlan, FaultSpec, RetryPolicy, SolveReport,
+                     reduce_info)
 from .utils import trace
 
 __version__ = "0.1.0"

@@ -10,5 +10,6 @@ from .matrix import (BandMatrix, BaseBandMatrix, BaseMatrix, BaseTrapezoidMatrix
                      HermitianBandMatrix, HermitianMatrix, Matrix, MatrixStorage,
                      SymmetricMatrix, TrapezoidMatrix, TriangularBandMatrix,
                      TriangularMatrix, as_array, distribution_grid,
-                     from_reference_state, resolve_device, to_tensor, write_back)
+                     from_reference_factors, from_reference_state, resolve_device,
+                     to_tensor, write_back)
 from . import grid as func  # reference include/slate/func.hh namespace name

@@ -736,3 +736,26 @@ def from_reference_state(d: dict, device=None) -> BaseMatrix:
         w = w._make_view(io, jo, m, n, op)
         w.uplo = uplo
     return w
+
+
+def from_reference_factors(d: dict, device=None):
+    """Rebuild a JAX-package factorization as the port's, from a plain dict —
+    the factorization counterpart of :func:`from_reference_state`.
+
+    * ``{"LU": ..., "perm": ...}`` (what ``slate_tpu.getrf`` returns, as numpy;
+      ``perm`` may be None) gives ``(LU, perm)`` tensors, ``perm`` int64, for
+      ``getrs``/``getri``/``gecondest``;
+    * ``{"packed": ..., "tau": ..., "T": ...}`` (a ``TriangularFactors``)
+      gives the port's ``TriangularFactors`` for ``unmqr``/``unmlq``
+      (:meth:`slate_tpu_torch.linalg.qr.TriangularFactors.from_reference`).
+
+    Placed on ``device`` (default ``cuda``)."""
+    if "LU" in d:
+        lu_ = to_tensor(d["LU"], device)
+        perm = d.get("perm")
+        return lu_, None if perm is None else torch.tensor(
+            np.asarray(perm), dtype=torch.int64, device=lu_.device)
+    if "packed" in d:
+        from ..linalg.qr import TriangularFactors
+        return TriangularFactors.from_reference(d, device)
+    raise SlateError(f"no factorization with keys {sorted(d)}")

@@ -20,8 +20,12 @@ every library Cholesky call here marks a failure the way the JAX package's facto
 shows it (:func:`_cholesky`, no host sync), so ``info`` computed from the factor
 diagonal is the JAX package's code: the first index of the failing block, or the
 pivot a NaN input first reaches.  ``Options.exact_info`` refines it on the host
-to the LAPACK index of the first failing pivot.  Posv-mixed variants arrive with
-the escalation ladders (ROADMAP.md queue A).
+to the LAPACK index of the first failing pivot.
+
+The mixed-precision solves (``posv_mixed``, ``posv_mixed_gmres``) factor in the
+next lower precision and refine in the working one.  The JAX package's
+``lax.while_loop`` refinement becomes a Python loop here, with one host check
+of the convergence verdict per step (:func:`_ir_solve`).
 """
 
 from __future__ import annotations
@@ -30,11 +34,17 @@ import numpy as np
 import torch
 
 from ..core.matrix import (BaseMatrix, HermitianMatrix, SymmetricMatrix, as_array,
-                           distribution_grid, tri_to_full, write_back)
+                           distribution_grid, torch_dtype, tri_to_full, write_back)
 from ..core.types import Options, Target, Uplo
 from ..obs import instrument
-from ..robust import SolveReport, first_bad_index, first_bad_index_batched, inject
-from ..utils.trace import trace_block
+from ..robust import (RetryPolicy, Rung, SolveReport, first_bad_index,
+                      first_bad_index_batched, inject, run_ladder)
+from ..utils.trace import trace_block, trace_event
+
+
+def _dtype_name(dtype) -> str:
+    """The dtype's name as the JAX package prints it ("float32")."""
+    return str(dtype).removeprefix("torch.")
 
 
 def _full_spd(A, uplo) -> torch.Tensor:
@@ -253,7 +263,7 @@ def posv(A, B, opts=None, uplo=None):
               uplo=_default_uplo(A, uplo))
     if opts.solve_report:
         report = SolveReport(routine="posv", info=int(info),
-                             precision_used=str(as_array(L).dtype).removeprefix("torch."),
+                             precision_used=_dtype_name(as_array(L).dtype),
                              fallback_chain=("cholesky",)).finalize()
         report.recovered = report.info == 0
         return X, info, report
@@ -316,3 +326,176 @@ def potri(A, opts=None, uplo=None):
     the_uplo = _default_uplo(A, uplo)
     Linv = trtri(A, opts, uplo=the_uplo, diag="nonunit")
     return trtrm(A if isinstance(A, BaseMatrix) else Linv, opts, uplo=the_uplo)
+
+
+# ---------------------------------------------------------------------------
+# Mixed-precision iterative refinement (src/posv_mixed.cc, gesv_mixed.cc:23-40)
+# ---------------------------------------------------------------------------
+
+
+def _lower_precision(dtype):
+    """The reference factors f64 systems in f32 (gesv_mixed): f64->f32, c128->c64.
+
+    f32 has no lower rung, as in the JAX package (its library LU/Cholesky take
+    no bfloat16 operand), so f32 inputs take the plain full-precision solve."""
+    return {torch.float64: torch.float32,
+            torch.complex128: torch.complex64}.get(torch_dtype(dtype))
+
+
+def _factor_precision(opts: Options, dtype):
+    """``Options.factor_precision`` (any dtype spelling) or the default rung."""
+    if opts.factor_precision is not None:
+        return torch_dtype(opts.factor_precision)
+    return _lower_precision(dtype)
+
+
+def _ir_solve(Af, b, solve_lo, opts: Options):
+    """Generic iterative-refinement loop shared by posv_mixed/gesv_mixed/gesv_rbt
+    (gesv_mixed.cc iterative loop): solve in low precision, refine the residual
+    in working precision, stop on ||r|| <= ||x|| * ||A|| * sqrt(n) * eps
+    (inf-norms).
+
+    The JAX package's ``lax.while_loop`` becomes a Python loop: one host sync
+    per check of the verdict (the initial solve's and one per refinement step,
+    so ``1 + iters`` in all).  A NaN residual fails the test, so the loop runs
+    its budget and reports not converged.  The residual of the verdict is the
+    next step's right-hand side.  Returns ``(x, iters, converged)`` with host
+    ``iters``/``converged``."""
+    n = Af.shape[-1]
+    eps = torch.finfo(Af.real.dtype).eps
+    tol = opts.tolerance if opts.tolerance is not None else eps * (n ** 0.5)
+    anorm = torch.amax(torch.sum(torch.abs(Af), dim=-1))  # inf-norm
+
+    def verdict(x, r):
+        return bool(torch.amax(torch.abs(r)) <= tol * anorm * torch.amax(torch.abs(x)))
+
+    x = solve_lo(b).to(b.dtype)
+    r = b - torch.matmul(Af, x)
+    converged = verdict(x, r)
+    iters = 0
+    while not converged and iters < opts.max_iterations:
+        x = x + solve_lo(r).to(b.dtype)
+        r = b - torch.matmul(Af, x)
+        converged = verdict(x, r)
+        iters += 1
+    return x, iters, converged
+
+
+def _iters(k: int) -> torch.Tensor:
+    """An iteration count as the JAX package returns it (an int32 scalar)."""
+    return torch.tensor(k, dtype=torch.int32)
+
+
+@instrument
+def posv_mixed(A, B, opts=None, uplo=None):
+    """SPD solve: low-precision factor + working-precision refinement
+    (src/posv_mixed.cc), run as the declared mixed→full escalation ladder
+    (robust.LADDERS["posv_mixed"]; Option::UseFallbackSolver gates the second
+    rung, gesv_mixed.cc:93-96).
+
+    Returns (X, info, iters); with ``Options(solve_report=True)``,
+    (X, info, iters, SolveReport).
+    """
+    opts = Options.make(opts)
+    the_uplo = _default_uplo(A, uplo)
+    Af0 = _full_spd(A, None if isinstance(A, (HermitianMatrix, SymmetricMatrix))
+                    else the_uplo)
+    # pristine snapshot: each rung re-enters the input injection site, so a
+    # call_index=0 input fault is transient under escalation — the full-
+    # precision rung recovers from intact data, never a corrupted copy
+    b = as_array(B, device=Af0.device)
+    plain = opts.replace(solve_report=False)
+    lo = _factor_precision(opts, Af0.dtype)
+    report = SolveReport(routine="posv_mixed") if opts.solve_report else None
+
+    def full_solve():
+        Af = inject("posv_mixed", Af0)
+        if Af is Af0 and isinstance(A, BaseMatrix):
+            # no fault fired → original wrapper through posv, keeping its
+            # in-place L-factor write-back
+            X, info = posv(A, b, plain, uplo)
+        else:
+            X, info = posv(Af, b, plain, "lower")
+        return as_array(X), info
+
+    if lo is None:
+        X, info = full_solve()
+        X = write_back(B, X)
+        if report is not None:
+            report.record_rung("full")
+            report.info, report.precision_used = int(info), _dtype_name(Af0.dtype)
+            report.recovered = report.info == 0
+            return X, info, _iters(0), report.finalize()
+        return X, info, _iters(0)
+
+    state = {"iters": 0}
+
+    def mixed_rung():
+        Af = inject("posv_mixed", Af0)
+        with trace_block("posv_mixed", lo=_dtype_name(lo)):
+            L_lo = _cholesky(Af.to(lo))
+            L_lo = inject("posv_mixed", L_lo, point="factor")
+            info = _chol_info(L_lo)
+            x, iters, converged = _ir_solve(
+                Af, b, lambda rhs: _solve_chol(L_lo, rhs.to(lo)), opts)
+        state["iters"] = iters
+        return (x, info), converged
+
+    def full_rung():
+        X, info = full_solve()
+        return (X, info), bool(info == 0)
+
+    rungs = [Rung("mixed", mixed_rung)]
+    if opts.use_fallback_solver:
+        rungs.append(Rung("full", full_rung))
+    x, info = run_ladder("posv_mixed", rungs,
+                         RetryPolicy.from_options(opts, "posv_mixed"), report)
+    X = write_back(B, x)
+    if report is not None:
+        report.info = int(info)
+        report.iters = state["iters"]
+        report.precision_used = _dtype_name(lo if report.fallback_chain == ("mixed",)
+                                            else Af0.dtype)
+        return X, info, _iters(state["iters"]), report.finalize()
+    return X, info, _iters(state["iters"])
+
+
+@instrument
+def posv_mixed_gmres(A, B, opts=None, uplo=None):
+    """SPD GMRES-IR: FGMRES in working precision, right-preconditioned by the
+    low-precision Cholesky solve (src/posv_mixed_gmres.cc; single RHS like the
+    reference).  Returns (X, info, iters); iters is the restart count, -1 when
+    the full-precision fallback solved the system.  Host syncs: those of
+    :func:`lu._gmres_ir` (one per restart plus the verdict)."""
+    from .lu import _gmres_ir, _require_single_rhs
+
+    opts = Options.make(opts)
+    the_uplo = _default_uplo(A, uplo)
+    Af = _full_spd(A, None if isinstance(A, (HermitianMatrix, SymmetricMatrix))
+                   else the_uplo)
+    b = as_array(B, device=Af.device)
+    _require_single_rhs(b, "posv_mixed_gmres")
+    lo = _factor_precision(opts, Af.dtype)
+    if lo is None:
+        # solve_report stays off here: posv would otherwise append a report
+        # and break this 2-way unpack (posv_mixed_gmres has no report form)
+        X, info = posv(A, B, opts.replace(solve_report=False), uplo)
+        return X, info, _iters(0)
+
+    with trace_block("posv_mixed_gmres", lo=_dtype_name(lo)):
+        L_lo = _cholesky(Af.to(lo))
+        info = _chol_info(L_lo)
+
+        def precond(r):
+            return _solve_chol(L_lo, r.to(lo)[:, None])[:, 0].to(b.dtype)
+
+        x_out, restarts, converged = _gmres_ir(
+            lambda x: torch.matmul(Af, x), precond, b, opts, "posv_mixed_gmres")
+
+    if opts.use_fallback_solver and not converged:
+        # mixed_gmres→full ladder (robust.LADDERS), open-coded like
+        # gesv_mixed_gmres; the event keeps the escalation traceable
+        trace_event("fallback", routine="posv_mixed_gmres", to="full")
+        X, info = posv(A, B, opts.replace(solve_report=False), uplo)
+        return X, info, _iters(-1)
+    return write_back(B, x_out), info, _iters(restarts)

@@ -19,6 +19,7 @@ from ..core.exceptions import SlateError
 from ..core.matrix import as_array, resolve_device
 from ..core.types import Norm, Uplo
 from ..ops import norms as norm_ops
+from .lu import _as_perm, lu_factored_solve
 
 
 def norm1est(solve: Callable, solve_h: Callable, n: int, dtype,
@@ -65,19 +66,18 @@ def gecondest(LU, perm, anorm, opts=None, norm_kind=Norm.One):
     (src/gecondest.cc): rcond = 1 / (||A|| * est(||A^{-1}||)) in the 1- or inf-norm.
 
     ``perm`` is the row permutation of the factorization (P A = L U as
-    ``A[perm] = L U``), or None.  The inf-norm estimate uses
+    ``A[perm] = L U``), or None.  A^{-1} x goes through getrs's own solve
+    (:func:`.lu.lu_factored_solve`).  The inf-norm estimate uses
     ||A^{-1}||_inf == ||A^{-H}||_1 — pass anorm measured in the matching norm."""
     lu_ = as_array(LU)
     n = lu_.shape[-1]
     norm_kind = Norm.from_string(norm_kind)
     if norm_kind not in (Norm.One, Norm.Inf):
         raise SlateError("gecondest supports One or Inf norms")
-    p = None if perm is None else torch.as_tensor(perm, device=lu_.device).long()
+    p = None if perm is None else _as_perm(perm, lu_.device)
 
     def solve(x):
-        pb = _col(x if p is None else x[p])
-        y = torch.linalg.solve_triangular(lu_, pb, upper=False, unitriangular=True)
-        return torch.linalg.solve_triangular(lu_, y, upper=True)[:, 0]
+        return lu_factored_solve(lu_, p, _col(x))[:, 0]
 
     def solve_h(x):
         y = torch.linalg.solve_triangular(lu_.mH, _col(x), upper=False)

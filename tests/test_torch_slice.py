@@ -143,3 +143,59 @@ def test_gecondest_matches_jax(norm_kind):
     exact = 1.0 / (anorm * np.abs(np.linalg.inv(a)).sum(0 if norm_kind == "one"
                                                          else 1).max())
     assert exact <= float(got) * (1 + 1e-10)     # an estimate never exceeds ‖A⁻¹‖
+
+
+# ---------------------------------------------------------------------------
+# the general solvers' path of chip_smoke.py (LU, least squares, mixed
+# precision, ladders) at a small size on the CPU, against the JAX package
+# (f32 quantities to rtol 1e-4: two f32 factorizations of one matrix; f64 and
+# info codes, iteration counts and report chains as stated per check)
+# ---------------------------------------------------------------------------
+
+import chip_smoke as cs  # noqa: E402
+
+SMALL = {"n": 192, "nrhs": 10, "calu_nb": 64, "calu_ib": 32, "ls_m": 1024,
+         "ls_n": 64, "ls_nrhs": 16, "mixed_n": 192}
+
+
+def test_general_path_matches_jax():
+    got = cs.general_path("cpu", SMALL)
+    cs.check_general_path(got, SMALL)
+    n, k = SMALL["n"], SMALL["nrhs"]
+    a = cs.randn((n, n), torch.float32, "cpu", cs.SEED + 10).numpy()
+    b = cs.randn((n, k), torch.float32, "cpu", cs.SEED + 11).numpy()
+    lu, perm, info = sj.getrf(a.copy())
+    assert int(info) == got["gesv_info"] == 0
+    for kind in ("one", "inf"):
+        want = sj.gecondest(lu, perm, sj.norm(kind, a), norm_kind=kind)
+        np.testing.assert_allclose(got[f"gecondest_{kind}"], float(want), rtol=1e-4)
+    sing = a.copy()
+    sing[:, n // 3] = 0.0
+    assert got["singular_gesv_info"] == int(sj.gesv(sing, b)[2]) > 0
+    for panel in ("tournament", "pp"):
+        _, _, info = sj.getrf(a.copy(), {"method_lu": "calu", "block_size": 64,
+                                         "inner_blocking": 32, "lu_panel": panel})
+        assert got[f"calu_{panel}_info"] == int(info) == 0
+    bm = cs.randn((n, k), torch.float64, "cpu", cs.SEED + 15).numpy()
+    g = cs.randn((n, n), torch.float64, "cpu", cs.SEED + 17).numpy()
+    *_, iters, rep = sj.linalg.gesv_mixed(g, bm, {"solve_report": True})
+    assert (got["gesv_mixed_iters"], got["gesv_mixed_chain"]) == \
+        (int(iters), rep.fallback_chain)
+    assert set(got["times"]) >= {"gesv_s", "calu_tournament_s", "calu_pp_s",
+                                 "gels_cholqr_s", "gels_qr_s", "posv_mixed_s"}
+
+
+def test_small_general_and_the_card_check_on_the_cpu():
+    """The n = 4096 phase (here n = 96) with its forced escalations, and the
+    card-vs-CPU routine list on the CPU against the JAX package."""
+    res = cs.small_general("cpu", 96)
+    cs.check_small_general(res, 96)
+    host = cs.general_routines("cpu", 64)
+    assert cs.compare_general_routines(host, host)
+    rng = np.random.default_rng(cs.SEED + 30)
+    g = rng.standard_normal((64, 64))      # the routine list's first two draws
+    b = rng.standard_normal((64, 3))
+    X, _, info = sj.gesv(g, b)
+    assert host["gesv_xla_info"] == int(info) == 0
+    assert np.linalg.norm(host["gesv_xla"].numpy() - np.asarray(X)) \
+        <= 1e-12 * np.linalg.norm(np.asarray(X))
