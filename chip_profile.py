@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
 """Where the time of the port's full-width solver steps goes on one CUDA card.
 
-    python3 chip_profile.py [--steps gesv,calu_pp,...] [--trace-dir DIR]
+    python3 chip_profile.py [--steps gesv,calu_pp,serve,...] [--trace-dir DIR]
 
-For each step (the shapes of ``chip_smoke.py``'s main paths): one warm-up call,
-one timed call (host clock around the call and a device sync), then one call
-under ``torch.profiler`` (CPU and CUDA activities).  Prints, one ``key: value``
-line each: the timed call's host seconds, the device busy time of the profiled
-call (the sum of its kernels' and copies' own device time), the idle share
-``1 - busy / host seconds``, and the kernels that took the most device time,
-grouped by name.  With ``--trace-dir`` it writes a chrome trace per step.
-Exits non-zero without CUDA.
+For each solver step (the shapes of ``chip_smoke.py``'s main paths): one
+warm-up call, one timed call (host clock around the call and a device sync),
+then one call under ``torch.profiler`` (CPU and CUDA activities).  Prints, one
+``key: value`` line each: the timed call's host seconds, the device busy time
+of the profiled call (the sum of its kernels' and copies' own device time), the
+idle share ``1 - busy / host seconds``, and the kernels that took the most
+device time, grouped by name.  With ``--trace-dir`` it writes a chrome trace
+per step.
+
+The ``serve`` step is the measured pass of ``serve.run_mixed_workload``
+(1200 ``make_requests`` requests, default policy, one executor, as in
+``chip_smoke.py``'s serve phase) on a freshly warmed queue: after one pass
+for warm-in, one pass times the host clock from the first submit to the last
+result, and one more is profiled over the same window; the idle share is the
+profiled device busy time over the unprofiled pass.  Exits non-zero without
+CUDA.
 """
 
 from __future__ import annotations
@@ -20,10 +28,12 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
 import slate_tpu_torch as slate
+from slate_tpu_torch import serve
 
 TOP = 8
 
@@ -102,21 +112,94 @@ def profile_step(name, make, call, trace_dir=None) -> dict:
     return out
 
 
+def _hist_totals(name: str) -> tuple:
+    """(sum, count) over every series of one obs histogram."""
+    h = slate.obs.REGISTRY.get(name)
+    states = list(h.series().values()) if h is not None else []
+    return sum(s["sum"] for s in states), sum(s["count"] for s in states)
+
+
+def _serve_pass(reqs, combos, prof=None) -> tuple:
+    """The mixed workload's measured pass on a fresh warmed queue (default
+    policy, one executor, ``cuda``), optionally inside ``prof`` from the end
+    of the warm-up to the last result: returns (host seconds, tickets)."""
+    slate.obs.reset()
+    with serve.ServeQueue(cache=serve.ExecutableCache()) as q:
+        q.warmup(combos, dtype=reqs[0][1].dtype)
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.start()
+        t0 = time.perf_counter()
+        tickets = [q.submit(r, a, b) for r, a, b in reqs]
+        for t in tickets:
+            cs.require(t.result(timeout=300.0)[1] == 0, "a served request failed")
+        wall = time.perf_counter() - t0
+        if prof is not None:
+            torch.cuda.synchronize()
+            prof.stop()
+    return wall, tickets
+
+
+def profile_serve(trace_dir=None) -> dict:
+    """Device busy time and idle share of the mixed workload's measured
+    pass (see the module docstring), and the unprofiled pass's host-side
+    stage totals from the obs registry and the tickets: submit (the
+    caller's thread), pad + copy and execute (the executor's threads, per
+    batch), resolve (per request)."""
+    n = cs.SERVE["requests"]
+    reqs = serve.make_requests(n, seed=0)
+    combos = sorted({(r, a.shape[0], a.shape[1], b.shape[1]) for r, a, b in reqs})
+    _serve_pass(reqs, combos)                    # process warm-in
+    wall, tickets = _serve_pass(reqs, combos)
+    lat = [t.latency_s * 1e3 for t in tickets]
+    pad_s, batches = _hist_totals("slate_serve_pad_seconds")
+    exec_s, _ = _hist_totals("slate_serve_execute_seconds")
+    occ_sum, _ = _hist_totals("slate_serve_batch_occupancy")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    prof = torch.profiler.profile(activities=acts)
+    wall_p, _ = _serve_pass(reqs, combos, prof)
+    if trace_dir:
+        prof.export_chrome_trace(os.path.join(trace_dir, "serve.json"))
+    rows = _device_events(prof)
+    busy_s = sum(e.self_device_time_total for e in rows) / 1e6
+    launches = sum(e.count for e in rows)
+    out = {"requests": n, "host_s": wall, "solves_per_sec": n / wall,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "profiled_host_s": wall_p, "device_busy_s": busy_s,
+           "idle_share": 1.0 - busy_s / wall,
+           "idle_share_of_profiled_pass": 1.0 - busy_s / wall_p,
+           "device_launches": launches, "batches": batches,
+           "device_launches_per_batch": launches / max(batches, 1),
+           "mean_occupancy": occ_sum / max(batches, 1),
+           "host_submit_s": sum(t.stages["submit"] for t in tickets),
+           "host_pad_s": pad_s, "execute_s": exec_s,
+           "host_resolve_s": sum(t.stages["resolve"] for t in tickets)}
+    for e in rows[:TOP]:
+        out[f"kernel[{e.key[:70]}]"] = (f"{e.self_device_time_total / 1e3:.3f} ms "
+                                        f"in {e.count} launches")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: CUDA is not available; nothing was run", file=sys.stderr)
         return 1
     steps = _steps()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", default=",".join(steps))
+    ap.add_argument("--steps", default=",".join(list(steps) + ["serve"]))
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
     if args.trace_dir:
         os.makedirs(args.trace_dir, exist_ok=True)
     cs.say("nvidia-smi", cs.nvidia_smi())
     for name in args.steps.split(","):
-        make, call = steps[name]
-        for key, v in profile_step(name, make, call, args.trace_dir).items():
+        if name == "serve":
+            res = profile_serve(args.trace_dir)
+        else:
+            make, call = steps[name]
+            res = profile_step(name, make, call, args.trace_dir)
+        for key, v in res.items():
             cs.say(f"{name}_{key}", v)
         torch.cuda.empty_cache()
     return 0

@@ -38,7 +38,23 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    ``getri``, the minimum-norm ``gels``, and one forced escalation per
    escalation ladder (a zero pivot from a FaultPlan);
 8. at n = 512 f64: every new routine on the card against the port's CPU path
-   (solutions to 1e-10, ``info`` codes).
+   (solutions to 1e-10, ``info`` codes);
+9. the serving path (``slate_tpu_torch.serve``) at the JAX package's serving
+   configuration, with the kernels' launch counters set to 0 just before and
+   read just after (the serve path launches neither norm kernel: its verdicts
+   are ``info`` and ``isfinite``): ``start_batched`` of each routine at batch
+   32, bucket 64 (gels 128 x 64) under ``torch.cuda.set_sync_debug_mode
+   ("error")`` — the launch half never waits for the card; 1200 mixed
+   requests through the default ``BucketPolicy`` at one executor (solves/s,
+   p50/p99, warm-up, zero misses after it); 900 requests at 1, 2 and 4
+   executors and at 2 executors in continuous mode; the continuous-vs-flush
+   A/B; the chaos checks (a zero pivot recovered element-wise, a worker
+   crash rerouted at 2 executors under a 40-request burst); 48 requests
+   handed in as tensors already on the card (submit normalization and the
+   packer under ``set_sync_debug_mode("error")``: the operands never visit
+   the host; ``solve_many`` and a ``ServeQueue`` of them against the numpy
+   route); and 96 requests on the card against the CPU (backward errors
+   within the f32 gate, ``info`` equal).
 
 The last lines are a JSON line of per-kernel numbers, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -59,7 +75,10 @@ import numpy as np
 import torch
 
 import slate_tpu_torch as slate
+from slate_tpu_torch import serve
 from slate_tpu_torch.linalg import chol
+from slate_tpu_torch.serve import executor as sexec
+from slate_tpu_torch.serve import queue as squeue
 from slate_tpu_torch.ops import cuda_norms as cn
 from slate_tpu_torch.utils import trace
 
@@ -500,6 +519,275 @@ def compare_general_routines(card: dict, host: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the serving path (slate_tpu_torch.serve), through the public API (any device)
+# ---------------------------------------------------------------------------
+
+# the JAX package's serving configuration: the default BucketPolicy, the
+# make_requests stream, 1200 requests (bench.py:755), 900 at N in {1, 2, 4}
+# (bench.py:788-796), the continuous A/B's policy (bench.py:762-766)
+SERVE = {"requests": 1200, "scale_requests": 900, "executor_counts": (1, 2, 4),
+         "ab_requests": 300, "ab_rounds": 2, "burst": 40, "check_requests": 96,
+         "device_requests": 48, "start_batch": 32, "start_n": 64}
+AB_POLICY = {"dims": (16, 32), "nrhs_dims": (1, 4), "batch_dims": (1, 4, 16),
+             "max_batch": 16}
+
+
+def _start_operands(routine: str, batch: int, n: int, device) -> tuple:
+    """Well-posed (batch, m, n) stacks for one routine at bucket n (gels
+    2n x n), from a seeded generator on ``device``."""
+    m = 2 * n if routine == "gels" else n
+    A = randn((batch, m, n), torch.float32, device, SEED + 50)
+    B = randn((batch, m, 4), torch.float32, device, SEED + 51)
+    if routine == "posv":
+        A = torch.matmul(A, A.mT).add_(n * torch.eye(n, device=device))
+    elif routine == "gesv":
+        A = A.add_(n * torch.eye(n, device=device))
+    return A, B
+
+
+def serve_start_no_sync(device, batch: int, n: int) -> dict:
+    """``start_batched`` of each routine on operands already on ``device``
+    (the cache warmed by one solve first), under ``set_sync_debug_mode
+    ("error")`` on the card — any host sync in the launch half raises there;
+    ``finish_batched`` runs outside the mode.  Returns per routine the worst
+    backward error and the info codes' maximum."""
+    out = {}
+    cache = serve.ExecutableCache()
+    cuda = torch.device(device).type == "cuda"
+    for routine in ("gesv", "posv", "gels"):
+        name = routine + "_batched"
+        A, B = _start_operands(routine, batch, n, device)
+        serve.finish_batched(serve.start_batched(name, A, B, cache=cache))
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            pb = serve.start_batched(name, A, B, cache=cache)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+        payload, info, _ = serve.finish_batched(pb)
+        X = payload[0]
+        R = torch.matmul(A, X).sub_(B)
+        if routine == "gels":          # the normal-equations residual
+            R = torch.matmul(A.mT, R)
+        err = (torch.linalg.matrix_norm(R) / (torch.linalg.matrix_norm(A)
+               * torch.linalg.matrix_norm(X)))
+        if routine == "gels":
+            err = err / torch.linalg.matrix_norm(A)
+        out[routine] = {"info_max": int(info.abs().max()),
+                        "backward_error": float(err.max()),
+                        "hits": cache.stats()["hits"]}
+    return out
+
+
+def serve_chaos(device, burst: int, flight_path: str) -> dict:
+    """The serving chaos checks: a zero pivot in element 3 of a 32-element
+    gesv batch recovers element-wise (report chain ``("batched",
+    "elementwise")``, info 0); a worker crash on executor 0 of a 2-executor
+    queue under a ``burst``-request burst fails only its in-flight chunk,
+    reroutes the rest, and leaves the survivor serving."""
+    out = {}
+    A, B = _start_operands("gesv", 32, 16, device)
+    plan = slate.FaultPlan([slate.FaultSpec("gesv_batched", "zero_pivot",
+                                            call_index=3)])
+    with plan:
+        X, _, info, reps = serve.gesv_batched(A, B, {"solve_report": True},
+                                              cache=serve.ExecutableCache())
+    out["zero_pivot"] = {"fired": plan.fired, "chain": reps[3].fallback_chain,
+                         "recovered": reps[3].recovered,
+                         "info_max": int(info.abs().max()),
+                         "finite": bool(torch.isfinite(X).all())}
+    rng = np.random.default_rng(SEED + 52)
+    reqs = [rng.standard_normal((8, 8)).astype(np.float32) + 8 * np.eye(
+        8, dtype=np.float32) for _ in range(burst)]
+    rhs = rng.standard_normal((8, 1)).astype(np.float32)
+    flight = serve.FlightRecorder(auto_dump_path=flight_path)
+    with serve.ServeQueue(policy=serve.BucketPolicy(max_batch=4,
+                                                    batch_dims=(1, 4),
+                                                    max_wait_ms=2.0),
+                          cache=serve.ExecutableCache(), executors=2,
+                          flight=flight, device=device) as q:
+        with slate.FaultPlan([slate.FaultSpec(serve.SERVE_SITE, "worker_crash",
+                                              executor=0)]):
+            tickets = [q.submit("gesv", a, rhs) for a in reqs]
+            ok = failed = 0
+            for t in tickets:
+                try:
+                    ok += int(t.result(timeout=60.0)[1] == 0)
+                except slate.SlateError as e:
+                    require("worker thread died" in str(e), f"crash error {e}")
+                    failed += 1
+        after = q.submit("gesv", reqs[0], rhs)
+        survivor = (after.result(timeout=60.0)[1], after.executor)
+        out["worker_crash"] = {"ok": ok, "failed": failed,
+                               "capacity_fraction": q.capacity_fraction(),
+                               "survivor_info": int(survivor[0]),
+                               "survivor": survivor[1]}
+    return out
+
+
+def serve_device_operands(device, n_req: int) -> dict:
+    """Requests handed in as tensors already on ``device``
+    (``make_requests(n_req, seed=9, dims=(8, 13, 24))``).  On the card the
+    submit-side normalization of every request and the packing of the
+    largest bucket's chunk run under ``set_sync_debug_mode("error")``: a copy
+    to the host or a sync raises there.  Then ``solve_many`` of the tensors
+    against ``solve_many`` of the numpy arrays (same batches, same programs),
+    and a ``ServeQueue`` of the tensors against the same numpy results."""
+    reqs = serve.make_requests(n_req, seed=9, dims=(8, 13, 24))
+    dev = [(r, torch.from_numpy(a).to(device), torch.from_numpy(b).to(device))
+           for r, a, b in reqs]
+    policy = serve.BucketPolicy()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        groups: dict = {}
+        for r, a, b in dev:
+            key, item = squeue._normalize_request(policy, r, a, b)
+            groups.setdefault(key, []).append(item)
+        (routine, bucket, _), items = max(groups.items(),
+                                          key=lambda kv: len(kv[1]))
+        items = items[:policy.max_batch]
+        A, B, _ = sexec._pack_batch(routine, bucket, items,
+                                    policy.round_batch(len(items)),
+                                    torch.device(device))
+    finally:
+        if cuda:
+            torch.cuda.set_sync_debug_mode("default")
+    packed_ok = all(torch.equal(A[i, :it.a.shape[0], :it.a.shape[1]], it.a)
+                    for i, it in enumerate(items))
+    cache = serve.ExecutableCache()
+    want = serve.solve_many(reqs, cache=cache, device=device)
+    got = serve.solve_many(dev, cache=cache, device=device)
+    with serve.ServeQueue(cache=cache, device=device) as q:
+        tickets = [q.submit(r, a, b) for r, a, b in dev]
+        queued = [t.result(timeout=60.0) for t in tickets]
+
+    def worst(res):
+        return max(float(torch.linalg.vector_norm(x - w[0])
+                         / torch.linalg.vector_norm(w[0]))
+                   for (x, _), w in zip(res, want))
+
+    return {"requests": len(dev), "packed_chunk": len(items),
+            "packed_equal": packed_ok,
+            "info_equal": all(g[1] == w[1] == q_[1] == 0
+                              for g, w, q_ in zip(got, want, queued)),
+            "on_device": all(x.device.type == torch.device(device).type
+                             for x, _ in got + queued),
+            "solve_many_max_rel": worst(got), "queue_max_rel": worst(queued)}
+
+
+def serve_check(device, n_req: int) -> dict:
+    """``solve_many`` of ``make_requests(n_req, seed=9)`` on ``device``:
+    per request the solution, its info and its backward error (the
+    tester's gates: ||b - A x||_F / (||A||_F ||x||_F) for gesv/posv, the
+    normal-equations residual ||A^T (A x - b)|| / (||A||^2 ||x||) for gels),
+    computed in f64 on the host."""
+    reqs = serve.make_requests(n_req, seed=9)
+    res = serve.solve_many(reqs, device=device)
+    out = []
+    for (r, a, b), (x, info) in zip(reqs, res):
+        xh = x.cpu().numpy().astype(np.float64)
+        a64, b64 = a.astype(np.float64), b.astype(np.float64)
+        resid = a64 @ xh - b64
+        if r == "gels":
+            err = np.linalg.norm(a64.T @ resid) / (
+                np.linalg.norm(a64) ** 2 * np.linalg.norm(xh))
+        else:
+            err = np.linalg.norm(resid) / (np.linalg.norm(a64)
+                                           * np.linalg.norm(xh))
+        out.append({"routine": r, "n": a.shape[1], "x": xh, "info": int(info),
+                    "backward_error": float(err)})
+    return {"requests": out}
+
+
+def compare_serve_check(card: dict, host: dict) -> dict:
+    """Card against CPU on the same requests: info equal, both backward
+    errors within the f32 gate (100x for least squares), and the largest
+    relative difference of the solutions."""
+    worst_be, worst_diff = 0.0, 0.0
+    for c, h in zip(card["requests"], host["requests"]):
+        require(c["info"] == h["info"] == 0, f"serve check info {c['info']} "
+                f"(card) vs {h['info']} (cpu)")
+        g = gate(torch.float32, c["n"]) * (100.0 if c["routine"] == "gels" else 1.0)
+        for side in (c, h):
+            require(side["backward_error"] <= g, f"serve check {c['routine']} "
+                    f"n={c['n']}: backward error {side['backward_error']} > {g}")
+        worst_be = max(worst_be, c["backward_error"] / g)
+        worst_diff = max(worst_diff, float(np.linalg.norm(c["x"] - h["x"])
+                                           / np.linalg.norm(h["x"])))
+    return {"worst_backward_error_over_gate": worst_be,
+            "max_card_vs_cpu_rel": worst_diff}
+
+
+def serve_path(device, sizes: dict = SERVE, flight_path: str = "") -> dict:
+    """The serving path on ``device`` at ``sizes``: the no-sync launch
+    check, the mixed workload at one executor, the pool sizes, continuous
+    mode at two executors, the A/B, and the chaos checks.  Returns the
+    stats of each, and each part's host seconds."""
+    out, (times, step) = {}, _timed(device)
+    out["start"] = step("start_s", lambda: serve_start_no_sync(
+        device, sizes["start_batch"], sizes["start_n"]))
+    out["mixed"] = step("mixed_s", lambda: serve.run_mixed_workload(
+        num_requests=sizes["requests"], seed=0, device=device))
+    out["scale"] = step("scale_s", lambda: serve.run_scale_workload(
+        executor_counts=sizes["executor_counts"],
+        num_requests=sizes["scale_requests"], seed=0, device=device))
+    out["continuous_n2"] = step("continuous_s", lambda: serve.run_scale_workload(
+        executor_counts=(2,), num_requests=sizes["scale_requests"], seed=0,
+        continuous=True, device=device)["runs"]["2"])
+    out["ab"] = step("ab_s", lambda: serve.run_continuous_ab(
+        num_requests=sizes["ab_requests"], seed=0, rounds=sizes["ab_rounds"],
+        executors=2, dims=(8, 13), policy=serve.BucketPolicy(**AB_POLICY),
+        device=device))
+    out["chaos"] = step("chaos_s", lambda: serve_chaos(
+        device, sizes["burst"], flight_path or os.devnull))
+    out["device_operands"] = step("device_operands_s", lambda: serve_device_operands(
+        device, sizes["device_requests"]))
+    out["times"] = times
+    return out
+
+
+def check_serve_path(res: dict, sizes: dict = SERVE) -> None:
+    for routine, r in res["start"].items():
+        require(r["info_max"] == 0, f"start_batched {routine} info {r}")
+        g = gate(torch.float32, sizes["start_n"]) * (100.0 if routine == "gels"
+                                                     else 1.0)
+        require(r["backward_error"] <= g, f"start_batched {routine}: {r} > {g}")
+    runs = [res["mixed"], res["continuous_n2"]] + list(res["scale"]["runs"].values())
+    for r in runs:
+        require(r["bad"] == 0, f"serve run with {r['bad']} bad requests")
+        require(r["misses_after_warmup"] == 0,
+                f"serve run missed {r['misses_after_warmup']} times after warm-up")
+    require(res["mixed"]["distinct_buckets"] >= 4, "fewer than 4 buckets")
+    require(res["mixed"]["requests"] == sizes["requests"], "mixed request count")
+    require(sorted(res["scale"]["runs"]) == sorted(str(n) for n in
+                                                   sizes["executor_counts"]),
+            "a pool size was not served")
+    ab = res["ab"]
+    require(all(v is not None for v in ab["queue_wait_p50_ms"].values()),
+            "A/B queue-wait p50 missing")
+    z = res["chaos"]["zero_pivot"]
+    require(z["fired"] == (("gesv_batched", "zero_pivot", 3),)
+            and z["chain"] == ("batched", "elementwise") and z["recovered"]
+            and z["info_max"] == 0 and z["finite"], f"zero pivot: {z}")
+    w = res["chaos"]["worker_crash"]
+    require(1 <= w["failed"] <= 4 and w["ok"] == sizes["burst"] - w["failed"]
+            and w["capacity_fraction"] == 0.5 and w["survivor_info"] == 0
+            and w["survivor"] == "ex1", f"worker crash: {w}")
+    d = res["device_operands"]
+    # the same packed operands run the same program: equal to rounding of a
+    # different batch composition at most (f32)
+    require(d["requests"] == sizes["device_requests"] and d["packed_equal"]
+            and d["info_equal"] and d["on_device"]
+            and d["solve_many_max_rel"] <= 1e-5 and d["queue_max_rel"] <= 1e-4,
+            f"device operands: {d}")
+
+
+# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
@@ -917,6 +1205,73 @@ def full_general_path() -> dict:
     return launches
 
 
+def full_serve_path() -> dict:
+    """The serving path at the JAX package's serving configuration, with the
+    kernels' launch counters set to 0 just before and read just after; then
+    the card against the CPU on 96 requests (outside the counted run)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in cn.LAUNCHES:
+        cn.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    res = serve_path("cuda", SERVE, FLIGHT_PATH)
+    wall = time.perf_counter() - t0
+    launches = dict(cn.LAUNCHES)
+    check_serve_path(res)
+    for routine, r in res["start"].items():
+        for key, v in r.items():
+            say(f"serve_start_{routine}_{key}", v)
+    say("serve_start_sync_debug_mode", "error (no host sync in start_batched)")
+    m = res["mixed"]
+    for key in ("requests", "solves_per_sec", "p50_ms", "p99_ms",
+                "queue_wait_p50_ms", "queue_wait_p99_ms", "distinct_buckets",
+                "misses_after_warmup", "hits_measured", "wall_s", "bad"):
+        say(f"serve_mixed_{key}", m[key])
+    say("serve_mixed_warmup_s", m["warmup"]["seconds"])
+    say("serve_mixed_warmup_entries", m["warmup"]["misses"])
+    sc = res["scale"]["runs"]
+    for n, r in sc.items():
+        for key in ("solves_per_sec", "p50_ms", "p99_ms", "steals",
+                    "misses_after_warmup"):
+            say(f"serve_scale_n{n}_{key}", r[key])
+    say("serve_scale_n2_over_n1", sc["2"]["solves_per_sec"] / sc["1"]["solves_per_sec"])
+    c = res["continuous_n2"]
+    for key in ("solves_per_sec", "p50_ms", "p99_ms", "slot_joins",
+                "slot_join_rate", "queue_wait_p50_ms", "misses_after_warmup"):
+        say(f"serve_continuous_n2_{key}", c[key])
+    ab = res["ab"]
+    for key in ("offered_rate", "warm_solves_per_sec", "warm_ratio",
+                "queue_wait_p50_ms", "queue_wait_p99_ms", "latency_p50_ms",
+                "slot_join_rate", "slot_join_rate_closed_loop"):
+        say(f"serve_ab_{key}", ab[key])
+    for key, v in res["chaos"].items():
+        say(f"serve_chaos_{key}", v)
+    for key, v in res["device_operands"].items():
+        say(f"serve_device_operands_{key}", v)
+    say("serve_device_operands_sync_debug_mode",
+        "error (submit normalization and packing of card tensors)")
+    for key, v in res["times"].items():
+        say(f"serve_{key}", v)
+    say("serve_wall_s", wall)
+    say("serve_peak_memory_gib", torch.cuda.max_memory_allocated() / 2**30)
+    say("serve_launches", json.dumps(launches))
+    say("serve_norm_kernel_launches", sum(launches.values()))
+
+    t0 = time.perf_counter()
+    cmp = compare_serve_check(serve_check("cuda", SERVE["check_requests"]),
+                              serve_check("cpu", SERVE["check_requests"]))
+    for key, v in cmp.items():
+        say(f"serve_check_{key}", v)
+    say("serve_check_wall_s", time.perf_counter() - t0)
+    serve.shutdown()
+    return launches
+
+
+# the serve chaos check's flight-recorder dump (git ignores this file)
+FLIGHT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "flight_records.json")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -926,13 +1281,16 @@ def main() -> int:
     stats = kernel_phase()
     times = timing_phase()
     small_checks()
-    paths = {"posv": full_path(), "general": full_general_path()}
+    paths = {"posv": full_path(), "general": full_general_path(),
+             "serve": full_serve_path()}
     kernels = []
     for name in ("col_reduce", "row_sums"):
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
+            # the serve path launches neither kernel (its count, 0, is kept
+            # in launches_by_path)
             "launches": sum(p[name] for p in paths.values()),
             "launches_by_path": {path: p[name] for path, p in paths.items()},
             "max_abs_err": stats[name]["max_abs_err"],

@@ -8,11 +8,14 @@ mixed-precision ``posv_mixed``/``posv_mixed_gmres``), the LU family (``getrf``
 with partial, tournament (CALU) or no pivoting, ``getrs``/``gesv``/``getri`` and
 the ``gesv_nopiv``/``gesv_mixed``/``gesv_mixed_gmres``/``gesv_rbt`` ladders), the
 QR/least-squares family (``geqrf``/``gelqf``/``unmqr``/``unmlq``/``tsqr``/
-``cholqr``/``gels``), the condition estimators, and the escalation-ladder engine
-(:mod:`slate_tpu_torch.robust`).  Entry points place new data on ``cuda`` unless a
-``device`` is given; matrix and triangular norms of real f32/f64 data on the card
-run hand-written CUDA kernels (:mod:`slate_tpu_torch.ops.cuda_norms`).  It imports
-neither JAX nor the JAX package.
+``cholqr``/``gels``), the condition estimators, the escalation-ladder engine
+(:mod:`slate_tpu_torch.robust`), and the batched solver service
+(:mod:`slate_tpu_torch.serve`: batched drivers, prepared-program cache,
+serving queue with admission control, executor pool, flight recorder).  Entry
+points place new data on ``cuda`` unless a ``device`` is given; matrix and
+triangular norms of real f32/f64 data on the card run hand-written CUDA kernels
+(:mod:`slate_tpu_torch.ops.cuda_norms`).  It imports neither JAX nor the JAX
+package.
 """
 
 from .core import (BandMatrix, BaseMatrix, ConvergenceError,
@@ -36,7 +39,7 @@ from .linalg import (cholqr, gecondest, gelqf, gels, gels_cholqr, gels_qr, geqrf
                      getrs, getrs_nopiv, norm1est, pocondest, posv, posv_mixed,
                      posv_mixed_gmres, potrf, potri, potrs, trcondest, trtri,
                      trtrm, unmlq, unmqr)
-from . import linalg, obs, robust
+from . import linalg, obs, robust, serve
 from .robust import (FaultPlan, FaultSpec, RetryPolicy, SolveReport,
                      reduce_info)
 from .utils import trace

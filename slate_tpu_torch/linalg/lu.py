@@ -27,7 +27,10 @@ What differs from the JAX package:
   converts it on the host once (one device→host copy of the pivots, sequential
   swaps, one copy back) — never through ``lu_unpack``'s dense P.  The blocked
   drivers keep ``perm`` on the host while they run.  The conversion's host time
-  is published as the ``pivots`` phase (``utils.trace.last_phases``).
+  is published as the ``pivots`` phase (``utils.trace.last_phases``).  The
+  batched core :func:`gesv_core` alone converts on the device instead
+  (``lu_unpack`` + ``argmax``, no sync), because the serving tier launches a
+  batch and resolves it on another thread.
 * The factorizations update one private copy of the operand in place, and a row
   exchange moves only the rows whose position changes.
 * ``lax.while_loop``/``lax.cond`` become host control flow; each function's
@@ -496,14 +499,24 @@ def lu_factored_solve(plu, perm, rhs):
     return torch.linalg.solve_triangular(plu, y, upper=True)
 
 
+def _device_perm(plu: torch.Tensor, piv: torch.Tensor) -> torch.Tensor:
+    """Permutations from the library LU's 1-based ipiv without leaving the
+    device: ``lu_unpack`` replays the swaps into P (A = P L U), and row i of
+    the factor came from row ``perm[i]`` where column i of P holds its one.
+    Bit-identical to :func:`_ipiv_perm`; int64, on ``piv``'s device."""
+    P = torch.lu_unpack(plu, piv, unpack_data=False)[0]
+    return (P.real if P.is_complex() else P).argmax(dim=-2)
+
+
 def gesv_core(a, b):
     """Single-matrix gesv kernel: partially-pivoted LU + the two triangular
     sweeps, nothing else — no wrappers, no fault injection, no trace blocks.
     A leading batch dimension gives one ``perm`` and one ``info`` per matrix.
-    Returns ``(x, perm, info)``.  One host sync: the pivot conversion (the
-    JAX package's core has none; XLA returns the permutation itself)."""
+    Returns ``(x, perm, info)``.  No host sync: the pivots become the
+    permutation on the device (:func:`_device_perm`), so the batched serving
+    path can launch a batch and return before the card finishes it."""
     plu, piv = _lu_factor(a)
-    perm = torch.from_numpy(_ipiv_perm(piv, a.shape[-2], Timers())).to(a.device)
+    perm = _device_perm(plu, piv)
     pb = torch.take_along_dim(b, perm[..., None], dim=-2)
     y = torch.linalg.solve_triangular(plu, pb, upper=False, unitriangular=True)
     x = torch.linalg.solve_triangular(plu, y, upper=True)

@@ -8,16 +8,23 @@
   ``slate_spans_total`` counter and ``slate_span_seconds`` histogram, labeled
   routine/dtype/shape_bucket (and ``nb`` only when passed as a keyword).
   ``obs.instrument`` is the decorator the drivers wear.
+* **Time series and SLOs** (:mod:`.timeseries`, :mod:`.slo`) — windowed
+  rates and quantiles over the registry, and declared objectives evaluated
+  into ``ok``/``warning``/``breach`` verdicts (``slate_slo_*`` gauges) that
+  the serving queue's admission control reads.
 
-The compiled-cost audit, time series and SLO monitors are not ported yet
-(ROADMAP.md queue A item 14).
+The compiled-cost audit is not ported yet (ROADMAP.md queue A item 14).
 """
 
 from .registry import (REGISTRY, SCHEMA, Counter, Gauge, Histogram,
                        MetricsRegistry, quantile_from_counts,
                        validate_metrics)
-from .spans import (INSTRUMENT_ATTR, current_span, instrument,
+from .spans import (INSTRUMENT_ATTR, SpanHandle, current_span, instrument,
                     on_phases, scope, span_depth)
+from .timeseries import (TIMESERIES_SCHEMA, TimeSeriesSampler,
+                         validate_timeseries)
+from .slo import (SLO, SLOMonitor, SLOVerdict, STATUS_CODES,
+                  default_serve_slos)
 
 
 def counter(name: str, help: str = "") -> Counter:
@@ -46,14 +53,18 @@ def export_metrics(path: str, source: str = "unknown") -> str:
 
 
 def reset() -> None:
-    """Drop all metrics (test isolation / fresh-run boundary)."""
+    """Drop all metrics (test isolation / fresh-run boundary) — the serving
+    series a :class:`TimeSeriesSampler` windows and the ``slate_slo_*``
+    verdict gauges included, so no test reads another's samples."""
     REGISTRY.reset()
 
 
 __all__ = [
     "REGISTRY", "SCHEMA", "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "quantile_from_counts", "validate_metrics", "INSTRUMENT_ATTR",
-    "current_span", "instrument", "on_phases", "scope",
-    "span_depth", "counter", "gauge", "histogram", "metrics_doc",
+    "SpanHandle", "current_span", "instrument", "on_phases", "scope",
+    "span_depth", "TIMESERIES_SCHEMA", "TimeSeriesSampler",
+    "validate_timeseries", "SLO", "SLOMonitor", "SLOVerdict", "STATUS_CODES",
+    "default_serve_slos", "counter", "gauge", "histogram", "metrics_doc",
     "export_metrics", "reset",
 ]

@@ -28,6 +28,8 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
+import torch
+
 from ..utils.trace import trace_block
 from .registry import REGISTRY
 
@@ -48,8 +50,36 @@ def span_depth() -> int:
     return len(getattr(_stack, "spans", ()))
 
 
+class SpanHandle:
+    """The object a :func:`scope` yields: a slot for the span's result.
+
+    With ``device_sync=True`` on the scope, the recorded duration includes a
+    wait for the device stream that produced the tensor handed to
+    :meth:`set_result` — without it, asynchronous CUDA launches would close
+    the span at *launch* time and the execute histogram would measure queue
+    depth, not compute.
+    """
+
+    __slots__ = ("_result",)
+
+    def __init__(self):
+        self._result = None
+
+    def set_result(self, value) -> None:
+        """Attach the span's device result (waited for at close when the
+        scope was opened with ``device_sync=True``)."""
+        self._result = value
+
+
+def _wait_for(result) -> None:
+    """Block until the current stream of ``result``'s CUDA device has run
+    everything queued so far (a no-op for CPU tensors and non-tensors)."""
+    if isinstance(result, torch.Tensor) and result.is_cuda:
+        torch.cuda.current_stream(result.device).synchronize()
+
+
 @contextlib.contextmanager
-def scope(routine: str, **labels):
+def scope(routine: str, device_sync: bool = False, **labels):
     """Open an observability span around a routine invocation.
 
     ::
@@ -60,8 +90,18 @@ def scope(routine: str, **labels):
     Labels are stringified; the span's duration lands in the
     ``slate_span_seconds`` histogram and its count in ``slate_spans_total``.
     The duration is host time: CUDA launches are asynchronous, so it covers
-    the device work only where the routine itself waits for the device."""
+    the device work only where the routine itself waits for the device —
+    or where ``device_sync=True`` (the serve execute stage) makes the span
+    wait for the tensor attached through the yielded :class:`SpanHandle`;
+    such spans carry a ``device_sync="true"`` label so synced and unsynced
+    timings never mix in one series::
+
+        with obs.scope("serve.execute", device_sync=True) as sp:
+            sp.set_result(driver(A, B))
+    """
     labels = {k: str(v) for k, v in labels.items() if v is not None}
+    if device_sync:
+        labels["device_sync"] = "true"
     parent = current_span()
     if parent is not None:
         labels.setdefault("parent", parent)
@@ -69,10 +109,13 @@ def scope(routine: str, **labels):
     if stack is None:
         stack = _stack.spans = []
     stack.append(routine)
+    handle = SpanHandle()
     t0 = time.perf_counter()
     try:
         with trace_block(routine, **labels):
-            yield
+            yield handle
+            if device_sync:
+                _wait_for(handle._result)
     finally:
         dur = time.perf_counter() - t0
         stack.pop()

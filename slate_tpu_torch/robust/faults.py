@@ -22,8 +22,22 @@ Design constraints:
 Fault classes: ``nan_tile`` / ``inf_tile`` (one nb×nb tile NaN/Inf),
 ``zero_pivot`` (zero row+column ``index``), ``ir_stall`` (multiplicative
 perturbation of a factor, point="factor") and ``shard_fail`` (NaN rows of shard
-``index`` of ``world`` at a solve's output).  The serving faults arrive with the
-serving tier.
+``index`` of ``world`` at a solve's output).
+
+Serving-level faults (point="serve" — host-side events at the serving queue's
+batch boundary, not tensor corruptions; the serving tier acts on the fired spec
+via :func:`inject_serve`):
+
+``slow_executor``
+    The batch runner sleeps ``delay_s`` seconds before executing — a stalled
+    device / noisy-neighbor executor; exercises deadline expiry and the SLO
+    latency verdicts.
+``worker_crash``
+    The batch runner raises before serving — an unexpected executor death;
+    exercises drain-and-reroute and the queue's fail-fast path.
+``cache_flush``
+    The executable cache is cleared — a restarted executor losing its prepared
+    programs; exercises the rebuild path and the cache hit-rate SLO.
 """
 
 from __future__ import annotations
@@ -50,6 +64,7 @@ def count_event(name: str, **labels) -> None:
 POINT_INPUT = "input"      # operand at driver entry
 POINT_FACTOR = "factor"    # low-precision / intermediate factor
 POINT_OUTPUT = "output"    # solve result (distributed shard failures)
+POINT_SERVE = "serve"      # serving-queue batch boundary (host-side events)
 
 _KIND_POINT = {
     "nan_tile": POINT_INPUT,
@@ -57,6 +72,9 @@ _KIND_POINT = {
     "zero_pivot": POINT_INPUT,
     "ir_stall": POINT_FACTOR,
     "shard_fail": POINT_OUTPUT,
+    "slow_executor": POINT_SERVE,
+    "worker_crash": POINT_SERVE,
+    "cache_flush": POINT_SERVE,
 }
 
 
@@ -66,7 +84,7 @@ class FaultSpec:
 
     driver:     the site name drivers pass to :func:`inject` ("potrf", ...).
     kind:       one of ``nan_tile | inf_tile | zero_pivot | ir_stall |
-                shard_fail``.
+                shard_fail | slow_executor | worker_crash | cache_flush``.
     call_index: which invocation of that (driver, point) site to hit
                 (0 = first).
     tile:       (i, j) tile coordinate for the tile corruptions.
@@ -74,6 +92,11 @@ class FaultSpec:
     index:      pivot index (zero_pivot) / failed shard id (shard_fail).
     world:      shard count for shard_fail (rows split evenly).
     scale:      multiplicative magnitude for ir_stall.
+    delay_s:    stall duration for ``slow_executor`` (exact, deterministic).
+    executor:   serving-fault targeting: None counts the site's global batch
+                calls; an int pins the fault to that pool executor's own call
+                sequence (``executor=1, call_index=2`` kills executor 1's third
+                batch however the pool interleaves).
     """
 
     driver: str
@@ -84,6 +107,8 @@ class FaultSpec:
     index: int = 0
     world: int = 8
     scale: float = 1e3
+    delay_s: float = 0.05
+    executor: Optional[int] = None
 
     def __post_init__(self):
         if self.kind not in _KIND_POINT:
@@ -142,9 +167,30 @@ class FaultPlan:
         idx = self._counts.get((driver, point), 0)
         self._counts[(driver, point)] = idx + 1
         hits = [s for s in self.specs
-                if s.driver == driver and s.point == point and s.call_index == idx]
+                if s.driver == driver and s.point == point
+                and s.executor is None and s.call_index == idx]
         for s in hits:
             self._fired.append((driver, s.kind, idx))
+        return hits
+
+    def _take_serve(self, site: str,
+                    executor: Optional[int] = None) -> List[FaultSpec]:
+        """Serve-point call accounting: the global (site, serve) counter
+        always advances, and when the caller identifies itself as an
+        executor, that executor's own counter advances too — an
+        ``executor=k`` spec counts only executor k's batches, so it fires
+        deterministically however the pool interleaves."""
+        hits = self._take(site, POINT_SERVE)
+        if executor is not None:
+            ekey = (site, POINT_SERVE, int(executor))
+            eidx = self._counts.get(ekey, 0)
+            self._counts[ekey] = eidx + 1
+            mine = [s for s in self.specs
+                    if s.driver == site and s.point == POINT_SERVE
+                    and s.executor == int(executor) and s.call_index == eidx]
+            for s in mine:
+                self._fired.append((site, s.kind, eidx))
+            hits = hits + mine
         return hits
 
 
@@ -204,3 +250,26 @@ def inject(driver: str, x, point: str = POINT_INPUT):
         count_event("slate_robust_faults_injected_total",
                     routine=driver, kind=spec.kind, point=point)
     return x
+
+
+def inject_serve(site: str, executor: Optional[int] = None
+                 ) -> List[FaultSpec]:
+    """Serving-level injection boundary: which serve faults fire at this
+    (site, call) point of the active plan.
+
+    Serving faults are host-side *events* (a stall, a crash, a cache wipe),
+    so this hook returns the fired specs and the serving tier acts on them
+    (``slate_tpu_torch.serve.executor`` sleeps / raises / clears the cache).
+    ``call_index`` counts batch executions at ``site``; ``executor`` names
+    the calling pool executor, whose ``FaultSpec.executor`` specs count its
+    batches alone.  Returns [] with no plan active."""
+    plan = active()
+    if plan is None:
+        return []
+    specs = plan._take_serve(site, executor)
+    for spec in specs:
+        trace_event("fault_inject", driver=site, kind=spec.kind,
+                    point=POINT_SERVE, call=spec.call_index)
+        count_event("slate_robust_faults_injected_total",
+                    routine=site, kind=spec.kind, point=POINT_SERVE)
+    return specs

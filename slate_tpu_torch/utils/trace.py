@@ -13,6 +13,10 @@ The device-side timeline comes from ``torch.profiler``, so this module provides 
   chrome://tracing JSON (``trace.finish(path)``) — the portable successor of the
   reference's SVG writer.
 - ``Timers`` accumulates named phase durations (the drivers' ``timers[]`` map).
+- Request scopes (``request_scope``, ``batch_request_scope``) stamp a serving
+  request's ``trace_id`` into every region and event recorded while they are
+  open, and ``emit_span`` records a span from explicit timestamps — the
+  serving tier's per-request stage spans (``slate_tpu_torch.serve``).
 """
 
 from __future__ import annotations
@@ -46,6 +50,96 @@ def is_on() -> bool:
     return _enabled
 
 
+# ---------------------------------------------------------------------------
+# request-scoped trace ids (serving telemetry) — a serving request carries one
+# id from submit to resolve; every event recorded while a request scope is
+# open on this thread is stamped with it, so a single request's lifeline
+# (stage spans, ladder retries, fault instants) is stitchable out of the
+# interleaved chrome-trace by filtering on args.trace_id.
+# ---------------------------------------------------------------------------
+
+
+def current_request() -> Optional[str]:
+    """Innermost open request trace id on this thread (None outside)."""
+    stack = getattr(_state, "requests", None)
+    return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def request_scope(trace_id: Optional[str]):
+    """Mark this thread as working on request ``trace_id``; every
+    ``trace_block`` / ``trace_event`` recorded inside carries it as the
+    ``trace_id`` arg.  ``None`` is a no-op scope (callers need not branch).
+    Scopes nest: an inner request (one batch element's escalation ladder
+    inside a batch worker) shadows the outer one for its duration."""
+    if trace_id is None:
+        yield
+        return
+    stack = getattr(_state, "requests", None)
+    if stack is None:
+        stack = _state.requests = []
+    stack.append(str(trace_id))
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+@contextlib.contextmanager
+def batch_request_scope(trace_ids):
+    """Publish the per-element request ids of the batch this thread is about
+    to run, so code below the batched drivers (the element-granular
+    escalation in serve/batched.py) can re-open the owning request's scope
+    from a bare batch index via :func:`batch_request_id`."""
+    prev = getattr(_state, "batch_ids", None)
+    _state.batch_ids = tuple(str(t) if t is not None else None
+                             for t in trace_ids)
+    try:
+        yield
+    finally:
+        _state.batch_ids = prev
+
+
+def batch_request_id(i: int) -> Optional[str]:
+    """Trace id of batch element ``i`` under the innermost
+    :func:`batch_request_scope` (None outside one, or out of range)."""
+    ids = getattr(_state, "batch_ids", None)
+    if ids is None or not 0 <= int(i) < len(ids):
+        return None
+    return ids[int(i)]
+
+
+def _stamp_request(attrs: Dict[str, Any]) -> Dict[str, Any]:
+    req = current_request()
+    if req is not None and "trace_id" not in attrs:
+        attrs = dict(attrs)
+        attrs["trace_id"] = req
+    return attrs
+
+
+def emit_span(name: str, t_start: float, t_end: float, **attrs) -> None:
+    """Record a complete span from explicit ``time.perf_counter`` stamps.
+
+    The serving queue measures a request's stage boundaries as cheap host
+    timestamps while the batch runs, then *retrospectively* synthesizes the
+    per-request stage spans at resolve time — one request's pad/execute spans
+    overlap its batchmates', which nested context managers cannot express.
+    No-op while tracing is off; ``ts``/``dur`` land at the measured times."""
+    if not _enabled:
+        return
+    attrs = _stamp_request(attrs)
+    ev = {
+        "name": name, "ph": "X", "cat": "slate.serve",
+        "ts": (t_start - _t0) * 1e6,
+        "dur": max(t_end - t_start, 0.0) * 1e6,
+        "pid": os.getpid(), "tid": threading.get_ident() % 2**31,
+    }
+    if attrs:
+        ev["args"] = {k: str(v) for k, v in attrs.items()}
+    with _events_lock:
+        _events.append(ev)
+
+
 @contextlib.contextmanager
 def trace_block(name: str, **attrs):
     """RAII-style named region (reference trace::Block, internal/Trace.hh:103-108)."""
@@ -62,6 +156,7 @@ def trace_block(name: str, **attrs):
             "ts": (start - _t0) * 1e6, "dur": (end - start) * 1e6,
             "pid": os.getpid(), "tid": threading.get_ident() % 2**31,
         }
+        attrs = _stamp_request(attrs)
         if attrs:
             ev["args"] = {k: str(v) for k, v in attrs.items()}
         with _events_lock:
@@ -81,6 +176,7 @@ def trace_event(name: str, **attrs) -> None:
         "ts": (time.perf_counter() - _t0) * 1e6,
         "pid": os.getpid(), "tid": threading.get_ident() % 2**31,
     }
+    attrs = _stamp_request(attrs)
     if attrs:
         ev["args"] = {k: str(v) for k, v in attrs.items()}
     with _events_lock:

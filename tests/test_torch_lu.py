@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 import slate_tpu as sj
 import slate_tpu_torch as st
 from slate_tpu.linalg import lu as jlu
@@ -251,6 +253,31 @@ def test_gesv_solve_report_and_core():
     assert _rel(xb[0], xj) <= 1e-12
     np.testing.assert_array_equal(pb[0].numpy(), _np(pj))
     assert int(ib[0]) == 0 and int(ib[1]) == int(sj.linalg.gesv_core(sing, b)[2]) > 0
+
+
+@pytest.mark.parametrize("shape", [(30, 30), (7, 30, 30), (3, 64, 64)])
+@pytest.mark.parametrize("poison", [False, True])
+def test_gesv_core_device_perm_equals_host_replay_and_jax(shape, poison):
+    """gesv_core converts the pivots on the device (lu_unpack + argmax, no
+    host sync): int64 and bit-identical to the host replay the blocked
+    drivers time (_ipiv_perm) and to the JAX package's permutation, for
+    singular and NaN elements too."""
+    a = _gen(70 + len(shape), *shape[-2:]) if len(shape) == 2 else \
+        np.stack([_gen(70 + i, *shape[-2:]) for i in range(shape[0])])
+    if poison:
+        a = a.copy()
+        a[..., :, 5] = 0.0
+        a[..., -1, -1] = np.nan
+    b = np.ones(shape[:-1] + (2,))
+    _, pt, it = tlu.gesv_core(_t(a), _t(b))
+    plu, piv = tlu._lu_factor(_t(a))
+    host = tlu._ipiv_perm(piv, shape[-2], ttrace.Timers())
+    assert pt.dtype == torch.int64
+    np.testing.assert_array_equal(pt.numpy(), host)
+    jax_core = jax.vmap(jlu.gesv_core) if len(shape) == 3 else jlu.gesv_core
+    _, pj, ij = jax_core(a, b)
+    np.testing.assert_array_equal(pt.numpy(), _np(pj))
+    np.testing.assert_array_equal(it.numpy(), _np(ij))
 
 
 @pytest.mark.parametrize("trans", ["n", "t", "c", True, False])

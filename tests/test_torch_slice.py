@@ -199,3 +199,39 @@ def test_small_general_and_the_card_check_on_the_cpu():
     assert host["gesv_xla_info"] == int(info) == 0
     assert np.linalg.norm(host["gesv_xla"].numpy() - np.asarray(X)) \
         <= 1e-12 * np.linalg.norm(np.asarray(X))
+
+
+# ---------------------------------------------------------------------------
+# the serving phase of chip_smoke.py (slate_tpu_torch.serve) at a small size
+# on the CPU: every part of serve_path with its checks, and the card-vs-CPU
+# request list against the JAX package's packer (f32 requests: X to rtol
+# 1e-4, info identical)
+# ---------------------------------------------------------------------------
+
+SMALL_SERVE = {"requests": 150, "scale_requests": 90, "executor_counts": (1, 2),
+               "ab_requests": 40, "ab_rounds": 1, "burst": 40,
+               "check_requests": 24, "device_requests": 24, "start_batch": 8,
+               "start_n": 16}
+
+
+def test_serve_path_on_the_cpu(tmp_path):
+    res = cs.serve_path("cpu", SMALL_SERVE, str(tmp_path / "flight.json"))
+    cs.check_serve_path(res, SMALL_SERVE)
+    assert res["mixed"]["requests"] == 150
+    assert res["mixed"]["distinct_buckets"] >= 4
+    assert set(res["times"]) == {"start_s", "mixed_s", "scale_s",
+                                 "continuous_s", "ab_s", "chaos_s",
+                                 "device_operands_s"}
+    assert res["chaos"]["worker_crash"]["capacity_fraction"] == 0.5
+
+
+def test_serve_check_matches_jax():
+    host = cs.serve_check("cpu", SMALL_SERVE["check_requests"])
+    cmp = cs.compare_serve_check(host, host)
+    assert cmp["worst_backward_error_over_gate"] <= 1.0
+    reqs = sj.serve.make_requests(SMALL_SERVE["check_requests"], seed=9)
+    want = sj.serve.solve_many(reqs)
+    for got, (xj, ij) in zip(host["requests"], want):
+        xj = np.asarray(xj, dtype=np.float64)
+        assert got["info"] == int(ij) == 0
+        assert np.linalg.norm(got["x"] - xj) <= 1e-4 * np.linalg.norm(xj)
