@@ -5,12 +5,15 @@
 
 For each solver step (the shapes of ``chip_smoke.py``'s main paths): one
 warm-up call, one timed call (host clock around the call and a device sync),
-then one call under ``torch.profiler`` (CPU and CUDA activities).  Prints, one
+then one call under ``torch.profiler``.  The eig steps are ``heev`` (values,
+n = 16384 f32), ``svd`` (``svd_vals``, 16384), ``heev2s`` and ``svd2s``
+(two-stage values with the pipelined chase, 8192).  Prints, one
 ``key: value`` line each: the timed call's host seconds, the device busy time
-of the profiled call (the sum of its kernels' and copies' own device time), the
-idle share ``1 - busy / host seconds``, and the kernels that took the most
-device time, grouped by name.  With ``--trace-dir`` it writes a chrome trace
-per step.
+of the profiled call (the sum of its kernels' and copies' own device time,
+read from the raw trace), the idle share ``1 - busy / host seconds``, the
+device launches, and the kernels that took the most device time, grouped by
+name.  The profiler traces the card alone; with ``--trace-dir`` it also
+traces the host and writes a chrome trace per step.
 
 The ``serve`` step is the measured pass of ``serve.run_mixed_workload``
 (1200 ``make_requests`` requests, default policy, one executor, as in
@@ -64,7 +67,22 @@ def _steps():
         return (cs.randn((n, n), f64, "cuda", cs.SEED + 17),
                 cs.randn((n, k), f64, "cuda", cs.SEED + 15))
 
+    e = cs.EIG
+
+    def sym(n, seed):
+        return lambda: (cs.sym_normal(n, f32, "cuda", seed), None)
+
+    def normal(n, seed):
+        return lambda: (cs.randn((n, n), f32, "cuda", seed), None)
+
     return {
+        "heev": (sym(e["n"], cs.SEED + 50), lambda A, _: slate.heev(
+            A, uplo="lower", want_vectors=False)),
+        "svd": (normal(e["n"], cs.SEED + 51), lambda A, _: slate.svd_vals(A)),
+        "heev2s": (sym(e["two_stage_n"], cs.SEED + 52), lambda A, _: slate.heev(
+            A, want_vectors=False, method="two_stage", chase_pipeline=True)),
+        "svd2s": (normal(e["two_stage_n"], cs.SEED + 53), lambda A, _: slate.svd(
+            A, want_u=False, want_vt=False, method="two_stage", chase_pipeline=True)),
         "posv": (spd32, lambda A, B: slate.posv(A, B, {"target": "tiled",
                                                          "block_size": cs.NB}, "lower")),
         "gesv": (general, lambda A, B: slate.gesv(A, B)),
@@ -78,13 +96,42 @@ def _steps():
     }
 
 
-def _device_events(prof):
-    """Per-name averages of the events that ran on the card (kernels, copies,
-    memsets), without the profiler's own buffer bookkeeping."""
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith(("Buffer Flush", "Activity Buffer"))]
-    return sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)
+def _raw_device_totals(prof):
+    """{name: [device ns, launches]} of the card's events (kernels, copies,
+    memsets) in the raw trace, without the profiler's own buffer
+    bookkeeping.  The raw events, not ``key_averages()``: the two-stage
+    steps' traces hold millions of launches, which the latter's event tree
+    does not finish within minutes."""
+    per = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name()
+        if name.startswith(("Buffer Flush", "Activity Buffer")):
+            continue
+        tot = per.setdefault(name, [0, 0])
+        tot[0] += e.duration_ns()
+        tot[1] += 1
+    return per
+
+
+def _device_summary(prof) -> dict:
+    """Device busy seconds, launches and the top kernels of one profile."""
+    per = _raw_device_totals(prof)
+    rows = sorted(per.items(), key=lambda kv: kv[1][0], reverse=True)
+    out = {"device_busy_s": sum(ns for ns, _ in per.values()) / 1e9,
+           "device_launches": sum(c for _, c in per.values())}
+    for key, (ns, count) in rows[:TOP]:
+        out[f"kernel[{key[:70]}]"] = f"{ns / 1e6:.3f} ms in {count} launches"
+    return out
+
+
+def _activities(trace_dir) -> list:
+    """The card alone, and the host too when a chrome trace is asked for."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if trace_dir:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
+    return acts
 
 
 def profile_step(name, make, call, trace_dir=None) -> dict:
@@ -95,21 +142,16 @@ def profile_step(name, make, call, trace_dir=None) -> dict:
     call(A, B)
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=_activities(trace_dir)) as prof:
         call(A, B)
         torch.cuda.synchronize()
+    profiled_s = time.perf_counter() - t0
     if trace_dir:
         prof.export_chrome_trace(os.path.join(trace_dir, f"{name}.json"))
-    rows = _device_events(prof)
-    busy_s = sum(e.self_device_time_total for e in rows) / 1e6
-    out = {"host_s": host_s, "device_busy_s": busy_s,
-           "idle_share": 1.0 - busy_s / host_s,
-           "device_launches": sum(e.count for e in rows)}
-    for e in rows[:TOP]:
-        out[f"kernel[{e.key[:70]}]"] = (f"{e.self_device_time_total / 1e3:.3f} ms "
-                                        f"in {e.count} launches")
-    return out
+    dev = _device_summary(prof)
+    return {"host_s": host_s, "profiled_host_s": profiled_s,
+            "idle_share": 1.0 - dev["device_busy_s"] / host_s, **dev}
 
 
 def _hist_totals(name: str) -> tuple:
@@ -155,29 +197,24 @@ def profile_serve(trace_dir=None) -> dict:
     pad_s, batches = _hist_totals("slate_serve_pad_seconds")
     exec_s, _ = _hist_totals("slate_serve_execute_seconds")
     occ_sum, _ = _hist_totals("slate_serve_batch_occupancy")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    prof = torch.profiler.profile(activities=acts)
+    prof = torch.profiler.profile(activities=_activities(trace_dir))
     wall_p, _ = _serve_pass(reqs, combos, prof)
     if trace_dir:
         prof.export_chrome_trace(os.path.join(trace_dir, "serve.json"))
-    rows = _device_events(prof)
-    busy_s = sum(e.self_device_time_total for e in rows) / 1e6
-    launches = sum(e.count for e in rows)
+    dev = _device_summary(prof)
+    busy_s, launches = dev["device_busy_s"], dev["device_launches"]
     out = {"requests": n, "host_s": wall, "solves_per_sec": n / wall,
            "p50_ms": float(np.percentile(lat, 50)),
            "p99_ms": float(np.percentile(lat, 99)),
-           "profiled_host_s": wall_p, "device_busy_s": busy_s,
+           "profiled_host_s": wall_p,
            "idle_share": 1.0 - busy_s / wall,
            "idle_share_of_profiled_pass": 1.0 - busy_s / wall_p,
-           "device_launches": launches, "batches": batches,
+           "batches": batches,
            "device_launches_per_batch": launches / max(batches, 1),
            "mean_occupancy": occ_sum / max(batches, 1),
            "host_submit_s": sum(t.stages["submit"] for t in tickets),
            "host_pad_s": pad_s, "execute_s": exec_s,
-           "host_resolve_s": sum(t.stages["resolve"] for t in tickets)}
-    for e in rows[:TOP]:
-        out[f"kernel[{e.key[:70]}]"] = (f"{e.self_device_time_total / 1e3:.3f} ms "
-                                        f"in {e.count} launches")
+           "host_resolve_s": sum(t.stages["resolve"] for t in tickets), **dev}
     return out
 
 
@@ -194,6 +231,7 @@ def main() -> int:
         os.makedirs(args.trace_dir, exist_ok=True)
     cs.say("nvidia-smi", cs.nvidia_smi())
     for name in args.steps.split(","):
+        cs.say(f"{name}_start_s", time.perf_counter())
         if name == "serve":
             res = profile_serve(args.trace_dir)
         else:

@@ -54,7 +54,26 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
    packer under ``set_sync_debug_mode("error")``: the operands never visit
    the host; ``solve_many`` and a ``ServeQueue`` of them against the numpy
    route); and 96 requests on the card against the CPU (backward errors
-   within the f32 gate, ``info`` equal).
+   within the f32 gate, ``info`` equal);
+10. the eigenvalue and SVD family (``eig``), with the kernels' launch counters
+    set to 0 just before the full-width steps and read just after (the path
+    launches neither norm kernel: heev scales by an inline max): ``heev``
+    values and vectors and ``svd_vals`` at n = 16384 f32, each timed on a
+    cold and then a warm call (ascending order, the trace and sum-of-squares
+    checks, the tester's eigenvector gate, Sigma sigma^2 against ||A||_F^2,
+    each warm step's GFLOP/s on bench.py's models), the
+    two-stage values (pipelined chase) of ``heev`` and ``svd`` at n = 8192
+    against the fused values of the same matrix, with the he2hb / hb2st /
+    sterf and ge2tb / bdsqr phase split (tracing on for those two calls, so
+    each phase ends in a device sync); then, outside the counted run, the
+    library SVD's values under its two drivers at n = 4096, the two-stage
+    ``heev`` vectors (stedc), ``heev_range`` (k = 64 from the middle),
+    ``eig_count`` on a gap-centred interval, ``hegv``, ``svd`` vectors fused
+    and two-stage, ``svd_range``, ``pbsv`` / ``gbsv`` (kd = kl = ku = 64) and
+    ``hesv`` at n = 4096 f32, ``MethodEig.QR`` and ``Bisection`` at n = 512
+    f64 (with their phase split: steqr's sweep runs on the host), every new routine on the card against the CPU at n = 256 f64
+    (values and both chases' (d, e) to 1e-10, vectors sign-free, ``info``
+    equal), and the phase's peak device memory.
 
 The last lines are a JSON line of per-kernel numbers, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -63,6 +82,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import os
@@ -77,10 +97,14 @@ import torch
 import slate_tpu_torch as slate
 from slate_tpu_torch import serve
 from slate_tpu_torch.linalg import chol
+from slate_tpu_torch.linalg import eig as leig
 from slate_tpu_torch.serve import executor as sexec
 from slate_tpu_torch.serve import queue as squeue
 from slate_tpu_torch.ops import cuda_norms as cn
 from slate_tpu_torch.utils import trace
+
+# the module (the package binds the name "svd" to the driver function)
+lsvd = importlib.import_module("slate_tpu_torch.linalg.svd")
 
 N = 16384            # the potrf / norm bench size (bench.py:284,461)
 NB = 2048            # the Tiled potrf block (bench.py:304)
@@ -515,6 +539,327 @@ def compare_general_routines(card: dict, host: dict) -> dict:
             require(diffs[key] <= 1e-10, f"{key}: card vs cpu {diffs[key]}")
         else:
             require(got == want, f"{key}: card {got}, cpu {want}")
+    return diffs
+
+
+# ---------------------------------------------------------------------------
+# the eigenvalue and SVD family, through the public API (any device)
+# ---------------------------------------------------------------------------
+
+# full width: heev values and vectors and svd_vals at bench.py's BASELINE
+# size (bench.py:407-417, 434-442); the two-stage values at its two-stage size
+# (bench.py:636, 698) with the pipelined chase (bench.py:651, 709); subsets,
+# generalized, SVD vectors and the band / indefinite solvers at n = 4096; the
+# other tridiagonal methods at n = 512 f64; the card against the CPU at 256
+EIG = {"n": N, "two_stage_n": 8192, "small_n": 4096, "method_n": 512,
+       "check_n": 256, "range_k": 64, "band_k": 64}
+
+
+def sym_normal(n: int, dtype, device, seed: int) -> torch.Tensor:
+    """(M + M^T) / 2 of a seeded normal M (bench.py:407-411)."""
+    M = randn((n, n), dtype, device, seed)
+    return (M + M.T).mul_(0.5)
+
+
+def tfro(M) -> float:
+    """Frobenius norm in f64 by PyTorch (no norm kernel: the eig path's
+    checks must not launch the kernels the path does not reach)."""
+    return float(torch.linalg.vector_norm(M, dtype=torch.float64))
+
+
+def eig_gate(A, lam, Z) -> float:
+    """The tester's eigenvector check, max(||AZ - Z diag(lam)|| / ||A||,
+    ||I - Z^H Z|| / n), Frobenius norms (testing/routines.py:644-660)."""
+    k = Z.shape[-1]
+    R = torch.matmul(A, Z).sub_(Z * lam.to(Z.dtype)[None, :])
+    eye = torch.eye(k, dtype=Z.dtype, device=Z.device)
+    return max(tfro(R) / tfro(A), tfro(torch.matmul(Z.mH, Z).sub_(eye)) / A.shape[-1])
+
+
+def svd_gate(A, S, U, VT) -> float:
+    """The tester's SVD check, max(||A - U S V^H|| / ||A||, ||I - U^H U|| / k)
+    (testing/routines.py:836-851)."""
+    k = S.shape[-1]
+    R = torch.matmul(U * S.to(U.dtype)[None, :], VT).sub_(A)
+    eye = torch.eye(k, dtype=U.dtype, device=U.device)
+    return max(tfro(R) / tfro(A), tfro(torch.matmul(U.mH, U).sub_(eye)) / k)
+
+
+def values_checks(A, lam, prefix: str) -> dict:
+    """Ascending order, sum(lam) against tr A, sum(lam^2) against ||A||_F^2."""
+    lam64 = lam.double()
+    a_fro = tfro(A)
+    return {f"{prefix}_ascending": bool(torch.all(lam[1:] >= lam[:-1])),
+            f"{prefix}_trace_err": abs(float(lam64.sum()) - float(
+                torch.diagonal(A).double().sum())) / (A.shape[-1] * a_fro),
+            f"{prefix}_sumsq_err": abs(float((lam64 ** 2).sum()) - a_fro ** 2) / a_fro ** 2}
+
+
+def with_phase_split(fn):
+    """``fn`` run with tracing on, so the driver's timers end each phase in
+    a device sync (``utils.trace.Timers``) and hold the device's phase split;
+    a plain call stays asynchronous."""
+    def run():
+        was_on = trace.is_on()
+        trace.on()
+        try:
+            return fn()
+        finally:
+            if not was_on:
+                trace.off()
+    return run
+
+
+def eig_path(device, sizes: dict = EIG) -> dict:
+    """The eig/SVD main path at the widths in ``sizes`` on ``device``: heev
+    values and vectors and svd_vals at n, each timed cold (the first call at
+    its shape: the library's workspace is allocated) and then warm, then the
+    two-stage values (pipelined chase) of heev and svd at two_stage_n against
+    the fused values of the same matrix, with each pipeline's phase split
+    (:func:`with_phase_split` — the split bench.py:662-689 and :718-735 print).
+    Every step ends in a device synchronisation; returns the numbers and
+    each step's host time.  Checks use PyTorch norms, so the path launches no
+    norm kernel of its own."""
+    out, (times, step) = {}, _timed(device)
+    f32 = torch.float32
+    n = sizes["n"]
+    A = sym_normal(n, f32, device, SEED + 50)
+    def values():
+        return slate.heev(A, uplo="lower", want_vectors=False)
+
+    step("heev_values_cold_s", values)
+    lam, _ = step("heev_values_s", values)
+    out.update(values_checks(A, lam, "heev_values"))
+    step("heev_vectors_cold_s", lambda: slate.heev(A, uplo="lower"))
+    lam_v, Z = step("heev_vectors_s", lambda: slate.heev(A, uplo="lower"))
+    out["heev_vectors_gate"] = eig_gate(A, lam_v, Z)
+    out["heev_vectors_vs_values"] = float((lam_v - lam).abs().max() / lam.abs().max())
+    del Z, A
+    G = randn((n, n), f32, device, SEED + 51)
+    step("svd_vals_cold_s", lambda: slate.svd_vals(G))
+    S = step("svd_vals_s", lambda: slate.svd_vals(G))
+    g_fro = tfro(G)
+    out["svd_vals_sumsq_err"] = abs(float((S.double() ** 2).sum()) - g_fro ** 2) / g_fro ** 2
+    out["svd_vals_descending"] = bool(torch.all(S[1:] <= S[:-1]))
+    out["svd_driver"] = str(lsvd._SVD_DRIVER)
+    del G
+
+    n2 = sizes["two_stage_n"]
+    A = sym_normal(n2, f32, device, SEED + 52)
+    lam_f, _ = step("heev_fused_values_two_stage_n_s", lambda: slate.heev(
+        A, want_vectors=False))
+    lam_2, _ = step("heev_two_stage_values_s", with_phase_split(lambda: slate.heev(
+        A, want_vectors=False, method="two_stage", chase_pipeline=True)))
+    out["heev_two_stage_vs_fused"] = float((lam_2 - lam_f).abs().max() / lam_f.abs().max())
+    out["heev_two_stage_phases"] = dict(slate.heev.timers)
+    del A
+    G = randn((n2, n2), f32, device, SEED + 53)
+    S_f = step("svd_fused_values_two_stage_n_s", lambda: slate.svd_vals(G))
+    S_2, _, _ = step("svd_two_stage_values_s", with_phase_split(lambda: slate.svd(
+        G, want_u=False, want_vt=False, method="two_stage", chase_pipeline=True)))
+    out["svd_two_stage_vs_fused"] = float((S_2 - S_f).abs().max() / S_f.max())
+    out["svd_two_stage_phases"] = dict(slate.svd.timers)
+    out["times"] = times
+    return out
+
+
+def check_eig_path(res: dict, sizes: dict = EIG) -> None:
+    f32 = torch.float32
+    n, n2 = sizes["n"], sizes["two_stage_n"]
+    g = gate(f32, n)
+    require(res["heev_values_ascending"], "heev values not ascending")
+    require(res["heev_values_trace_err"] <= 50 * torch.finfo(f32).eps,
+            f"heev trace error {res['heev_values_trace_err']}")
+    for key in ("heev_values_sumsq_err", "heev_vectors_gate", "svd_vals_sumsq_err"):
+        require(res[key] <= g, f"{key} {res[key]} > {g}")
+    require(res["heev_vectors_vs_values"] <= g, "heev vectors' values vs values-only")
+    require(res["svd_vals_descending"], "singular values not descending")
+    for key in ("heev_two_stage_vs_fused", "svd_two_stage_vs_fused"):
+        require(res[key] <= gate(f32, n2), f"{key} {res[key]} > {gate(f32, n2)}")
+
+
+def small_eig(device, sizes: dict = EIG) -> dict:
+    """The rest of the family at small_n f32 (two-stage heev vectors by the
+    default method, heev_range, eig_count, hegv, svd vectors fused and
+    two-stage, svd_range, pbsv / gbsv / hesv) and at method_n f64 (the QR and
+    Bisection methods).  Returns the numbers and each step's host time."""
+    out, (times, step) = {}, _timed(device)
+    f32, f64 = torch.float32, torch.float64
+    n, k, kb = sizes["small_n"], sizes["range_k"], sizes["band_k"]
+    A = sym_normal(n, f32, device, SEED + 60)
+    lam, Z = step("heev_two_stage_vectors_s", lambda: slate.heev(
+        A, method="two_stage", chase_pipeline=True))
+    out["heev_two_stage_vectors_gate"] = eig_gate(A, lam, Z)
+    del Z
+    lam_f = slate.heev(A, want_vectors=False)[0]
+    a2 = float(lam_f.abs().max())
+    il = n // 2 - k // 2
+    lr, Zr = step("heev_range_s", lambda: slate.heev_range(A, il=il, iu=il + k,
+                                                           chase_pipeline=True))
+    out["heev_range_gate"] = eig_gate(A, lr, Zr)
+    out["heev_range_vs_full"] = float((lr - lam_f[il:il + k]).abs().max()) / a2
+    # an interval with both ends in the middle of wide gaps of the spectrum
+    gaps = lam_f[1:] - lam_f[:-1]
+    j1 = n // 4 + int(torch.argmax(gaps[n // 4: n // 2]))
+    j2 = n // 2 + int(torch.argmax(gaps[n // 2: 3 * n // 4]))
+    vl = float(lam_f[j1] + lam_f[j1 + 1]) / 2
+    vu = float(lam_f[j2] + lam_f[j2 + 1]) / 2
+    out["eig_count"] = step("eig_count_s", lambda: int(slate.eig_count(A, vl, vu)))
+    out["eig_count_full"] = j2 - j1
+    Bs = spd(n, torch.Generator(device=device).manual_seed(SEED + 61), device, f32)
+    lg, Zg = step("hegv_s", lambda: slate.hegv(1, A, Bs))
+    R = torch.matmul(A, Zg).sub_(torch.matmul(Bs, Zg) * lg[None, :])
+    out["hegv_residual"] = tfro(R) / ((tfro(A) + tfro(Bs) * float(lg.abs().max()))
+                                      * tfro(Zg))
+    del Zg, R, Bs
+
+    G = randn((n, n), f32, device, SEED + 62)
+    for method in ("fused", "two_stage"):
+        S, U, VT = step(f"svd_{method}_vectors_s", lambda: slate.svd(
+            G, method=method, chase_pipeline=True))
+        out[f"svd_{method}_gate"] = svd_gate(G, S, U, VT)
+        del U, VT
+    s_max = float(S[0])
+    Sr, Ur, VTr = step("svd_range_s", lambda: slate.svd_range(G, il=0, iu=k,
+                                                              chase_pipeline=True))
+    out["svd_range_vs_full"] = float((Sr - S[:k]).abs().max()) / s_max
+    out["svd_range_residual"] = tfro(torch.matmul(G, VTr.mH).sub_(Ur * Sr[None, :])) / (
+        tfro(G))
+    del G, Ur, VTr
+
+    Bn = randn((n, NRHS), f32, device, SEED + 63)
+    r = torch.arange(n, device=device)
+    inband = (r[:, None] - r[None, :]).abs() <= kb
+    P = torch.where(inband, sym_normal(n, f32, device, SEED + 64), 0.0)
+    P.diagonal().add_(2.0 * kb)          # diagonally dominant: SPD
+    X, info = step("pbsv_s", lambda: slate.pbsv(torch.tril(P), Bn, kd=kb))
+    out["pbsv_info"], out["pbsv_backward_error"] = int(info), backward_error(P, X, Bn)
+    Gb = torch.where(inband, randn((n, n), f32, device, SEED + 65), 0.0)
+    X, info = step("gbsv_s", lambda: slate.gbsv(Gb, Bn, kl=kb, ku=kb))
+    out["gbsv_info"], out["gbsv_backward_error"] = int(info), backward_error(Gb, X, Bn)
+    X, info = step("hesv_s", lambda: slate.hesv(A, Bn))
+    out["hesv_info"], out["hesv_backward_error"] = int(info), backward_error(A, X, Bn)
+    del A, P, Gb, X
+
+    m = sizes["method_n"]
+    A = sym_normal(m, f64, device, SEED + 66)
+    for method in ("qr", "bisection"):
+        lam, Z = step(f"heev_{method}_s", with_phase_split(lambda: slate.heev(
+            A, {"method_eig": method}, method="two_stage", chase_pipeline=True)))
+        out[f"heev_{method}_gate"] = eig_gate(A, lam, Z)
+        out[f"heev_{method}_phases"] = dict(slate.heev.timers)
+    out["times"] = times
+    return out
+
+
+def check_small_eig(res: dict, sizes: dict = EIG) -> None:
+    f32, f64 = torch.float32, torch.float64
+    n = sizes["small_n"]
+    g = gate(f32, n)
+    for key in ("heev_two_stage_vectors_gate", "heev_range_gate", "heev_range_vs_full",
+                "hegv_residual", "svd_fused_gate", "svd_two_stage_gate",
+                "svd_range_vs_full", "svd_range_residual"):
+        require(res[key] <= g, f"{key} {res[key]} > {g}")
+    require(res["eig_count"] == res["eig_count_full"],
+            f"eig_count {res['eig_count']} != {res['eig_count_full']}")
+    for name in ("pbsv", "gbsv", "hesv"):
+        require(res[f"{name}_info"] == 0, f"{name} info {res[f'{name}_info']}")
+        require(res[f"{name}_backward_error"] <= g,
+                f"{name} backward error {res[f'{name}_backward_error']} > {g}")
+    # QR iteration's envelope is the JAX package's own for steqr, 100 n eps
+    # (tests/test_steqr.py:35-44): its per-sweep closed-form rotation
+    # products leave ~1e-13 at n = 512 in both packages, above 50 eps sqrt(n)
+    m = sizes["method_n"]
+    for method, gm in (("qr", 100.0 * torch.finfo(f64).eps * m),
+                       ("bisection", gate(f64, m))):
+        require(res[f"heev_{method}_gate"] <= gm,
+                f"heev {method} gate {res[f'heev_{method}_gate']} > {gm}")
+
+
+def eig_routines(device, n: int = EIG["check_n"]) -> dict:
+    """Every new routine on ``device`` from the same numpy-seeded f64 inputs:
+    eigenvalues, singular values, (d, e) of both chases, vectors, solutions
+    and info codes, for the card against the port's CPU path."""
+    rng = np.random.default_rng(SEED + 70)
+
+    def t(a):
+        return torch.tensor(a, device=device)
+
+    g = rng.standard_normal((n, n))
+    a = (g + g.T) / 2
+    s = g @ g.T / n + 2 * np.eye(n)
+    b = rng.standard_normal((n, 3))
+    kb = 8
+    inband = np.abs(np.subtract.outer(np.arange(n), np.arange(n))) <= kb
+    pb = np.where(inband, a, 0.0) + 2 * kb * np.eye(n)
+    gb = np.where(inband, g, 0.0)
+    lam_a = np.linalg.eigvalsh(a)
+    gaps = np.diff(lam_a)
+    j1, j2 = n // 4 + int(np.argmax(gaps[n // 4: n // 2])), n // 2 + int(np.argmax(gaps[n // 2:]))
+    vl, vu = (lam_a[j1] + lam_a[j1 + 1]) / 2, (lam_a[j2] + lam_a[j2 + 1]) / 2
+    nb = leig.default_band_nb(n)
+    out = {}
+    for method in ("auto", "qr", "bisection"):
+        lam, Z = slate.heev(t(a), {"method_eig": method}, method="two_stage",
+                            chase_pipeline=True)
+        out[f"heev_{method}_values"], out[f"heev_{method}_vectors"] = lam, Z
+    out["heev_fused_values"], out["heev_fused_vectors"] = slate.heev(t(a))
+    band = slate.he2hb(t(a))[0]
+    for pipeline in (False, True):
+        d, e = slate.hb2st(band, kd=nb, pipeline=pipeline)
+        out[f"hb2st_{pipeline}_d"], out[f"hb2st_{pipeline}_e"] = d, e
+        d, e = slate.tb2bd(slate.ge2tb_band(t(g))[0], nb, pipeline=pipeline)
+        out[f"tb2bd_{pipeline}_d"], out[f"tb2bd_{pipeline}_e"] = d, e
+    lam, Z = slate.heev_range(t(a), il=n // 3, iu=n // 3 + n // 8, chase_pipeline=True)
+    out["heev_range_values"], out["heev_range_vectors"] = lam, Z
+    out["eig_count"] = int(slate.eig_count(t(a), vl, vu))
+    out["hegv_values"], out["hegv_vectors"] = slate.hegv(1, t(a), t(s))
+    S, U, VT = slate.svd(t(g), method="two_stage", chase_pipeline=True)
+    out["svd_two_stage_values"], out["svd_two_stage_vectors"] = S, U
+    out["svd_fused_values"] = slate.svd_vals(t(g))
+    S, U, VT = slate.svd_range(t(g), il=0, iu=n // 8, chase_pipeline=True)
+    out["svd_range_values"], out["svd_range_vectors"] = S, U
+    d, e = rng.standard_normal(n), rng.standard_normal(n - 1)
+    for name in ("stedc", "steqr"):
+        lam, Z = getattr(slate, name)(t(d), t(e))
+        out[f"{name}_values"], out[f"{name}_vectors"] = lam, Z
+    out["sterf_bisect_values"] = slate.sterf_bisect(t(d), t(e))
+    X, info = slate.pbsv(t(np.tril(pb)), t(b), kd=kb)
+    out["pbsv_x"], out["pbsv_info"] = X, int(info)
+    X, info = slate.gbsv(t(gb), t(b), kl=kb, ku=kb)
+    out["gbsv_x"], out["gbsv_info"] = X, int(info)
+    X, info = slate.hesv(t(a), t(b))
+    out["hesv_x"], out["hesv_info"] = X, int(info)
+    sing = gb.copy()
+    sing[:, 7] = 0.0
+    out["gbtrf_singular_info"] = int(slate.gbtrf(t(sing), kl=kb, ku=kb)[1])
+    bad = pb.copy()
+    bad[n // 3, n // 3] = -1e3
+    out["pbtrf_non_spd_info"] = int(slate.pbtrf(t(np.tril(bad)), kd=kb)[1])
+    return out
+
+
+def compare_eig_routines(card: dict, host: dict) -> dict:
+    """Card against CPU: values and (d, e) within 1e-10 of the largest,
+    vectors by the sign-free test |diag(Z_cpu^H Z_card)| >= 1 - 1e-10,
+    solutions within 1e-10 relative, info codes identical."""
+    diffs = {}
+    for key, want in host.items():
+        got = card[key]
+        if not isinstance(want, torch.Tensor):
+            require(got == want, f"{key}: card {got}, cpu {want}")
+            continue
+        got = got.cpu()
+        if key.endswith("_vectors"):     # hegv's are B-orthonormal: normalize
+            dots = (want.conj() * got).sum(dim=0).abs() / (
+                torch.linalg.vector_norm(want, dim=0) * torch.linalg.vector_norm(got, dim=0))
+            diffs[key] = float(1.0 - dots.min())
+        elif key.endswith("_x"):
+            diffs[key] = float(torch.linalg.vector_norm(got - want)
+                               / torch.linalg.vector_norm(want))
+        else:
+            diffs[key] = float((got - want).abs().max() / want.abs().max())
+        require(diffs[key] <= 1e-10, f"{key}: card vs cpu {diffs[key]}")
     return diffs
 
 
@@ -1205,6 +1550,75 @@ def full_general_path() -> dict:
     return launches
 
 
+def svd_driver_times(n: int) -> dict:
+    """The library SVD's values at n f32 under PyTorch's default driver
+    (Jacobi first) and gesvd: host seconds of the second of two calls each,
+    and Sigma sigma^2 against ||A||_F^2.  The driver the port passes
+    (``_SVD_DRIVER``) must meet the gate; the other is measured only."""
+    G = randn((n, n), torch.float32, "cuda", SEED + 54)
+    g_fro = tfro(G)
+    out = {}
+    for driver in (None, "gesvd"):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            S = torch.linalg.svdvals(G, driver=driver)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+        out[f"{driver}_s"] = t
+        out[f"{driver}_sumsq_err"] = abs(float((S.double() ** 2).sum()) - g_fro ** 2) / g_fro ** 2
+    chosen = lsvd._SVD_DRIVER
+    require(out[f"{chosen}_sumsq_err"] <= gate(torch.float32, n),
+            f"svdvals driver {chosen}: {out[f'{chosen}_sumsq_err']}")
+    return out
+
+
+def full_eig_path() -> dict:
+    """The eig/SVD family: the full-width steps with the kernels' launch
+    counters set to 0 just before and read just after (no norm kernel is on
+    this path: heev scales by an inline max); then the SVD drivers at
+    small_n, the n = 4096 and n = 512 checks, and the card against the CPU at
+    n = 256 (outside the counted run)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in cn.LAUNCHES:
+        cn.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    res = eig_path("cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(cn.LAUNCHES)
+    _say_all("eig", res)
+    check_eig_path(res)
+    n, n2 = EIG["n"], EIG["two_stage_n"]
+    t = res["times"]
+    for name, flops in (("heev_values", 4.0 * n ** 3 / 3.0),
+                        ("heev_vectors", 4.0 * n ** 3 / 3.0 + 2.0 * n ** 3),
+                        ("svd_vals", 8.0 * n ** 3 / 3.0),
+                        ("heev_two_stage_values", 4.0 * n2 ** 3 / 3.0),
+                        ("svd_two_stage_values", 8.0 * n2 ** 3 / 3.0)):
+        say(f"eig_{name}_gflops", flops / t[f"{name}_s"] / 1e9)
+    say("eig_wall_s", wall)
+    say("eig_launches", json.dumps(launches))
+    say("eig_norm_kernel_launches", sum(launches.values()))
+
+    t0 = time.perf_counter()
+    for key, v in svd_driver_times(EIG["small_n"]).items():
+        say(f"eig_svd_driver_n{EIG['small_n']}_{key}", v)
+    small = small_eig("cuda")
+    _say_all("eig_small", small)
+    check_small_eig(small)
+    say("eig_small_wall_s", time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    diffs = compare_eig_routines(eig_routines("cuda"), eig_routines("cpu"))
+    for key, d in diffs.items():
+        say(f"eig_check_{key}_card_vs_cpu", d)
+    say("eig_check_wall_s", time.perf_counter() - t0)
+    say("eig_peak_memory_gib", torch.cuda.max_memory_allocated() / 2**30)
+    torch.cuda.synchronize()
+    return launches
+
+
 def full_serve_path() -> dict:
     """The serving path at the JAX package's serving configuration, with the
     kernels' launch counters set to 0 just before and read just after; then
@@ -1282,15 +1696,15 @@ def main() -> int:
     times = timing_phase()
     small_checks()
     paths = {"posv": full_path(), "general": full_general_path(),
-             "serve": full_serve_path()}
+             "serve": full_serve_path(), "eig": full_eig_path()}
     kernels = []
     for name in ("col_reduce", "row_sums"):
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
-            # the serve path launches neither kernel (its count, 0, is kept
-            # in launches_by_path)
+            # the serve and eig paths launch neither kernel (their counts,
+            # 0, are kept in launches_by_path)
             "launches": sum(p[name] for p in paths.values()),
             "launches_by_path": {path: p[name] for path, p in paths.items()},
             "max_abs_err": stats[name]["max_abs_err"],

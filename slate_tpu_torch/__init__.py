@@ -8,7 +8,12 @@ mixed-precision ``posv_mixed``/``posv_mixed_gmres``), the LU family (``getrf``
 with partial, tournament (CALU) or no pivoting, ``getrs``/``gesv``/``getri`` and
 the ``gesv_nopiv``/``gesv_mixed``/``gesv_mixed_gmres``/``gesv_rbt`` ladders), the
 QR/least-squares family (``geqrf``/``gelqf``/``unmqr``/``unmlq``/``tsqr``/
-``cholqr``/``gels``), the condition estimators, the escalation-ladder engine
+``cholqr``/``gels``), the condition estimators, the Hermitian eigensolvers and
+the SVD (``heev``/``svd`` fused and two-stage, ``stedc``/``steqr``/``sterf``,
+bisection, the subset and generalized solvers), the band solvers
+(``gbsv``/``pbsv`` and the band BLAS), the Hermitian-indefinite solvers
+(``hesv``), the verb-style aliases (:mod:`slate_tpu_torch.simplified`), the
+escalation-ladder engine
 (:mod:`slate_tpu_torch.robust`), and the batched solver service
 (:mod:`slate_tpu_torch.serve`: batched drivers, prepared-program cache,
 serving queue with admission control, executor pool, flight recorder).  Entry
@@ -32,16 +37,27 @@ from .blas import (add, col_norms, copy, gemm, gemmA, gemmC, hemm, hemmA,
                    set_from_function, set_lambdas, symm, syr2k, syrk, trmm,
                    trsm, trsmA, trsmB)
 # the JAX package's top-level names; the cores, the pivot encodings, tsqr,
-# rbt_generate and TriangularFactors live in .linalg, as they do there
-from .linalg import (cholqr, gecondest, gelqf, gels, gels_cholqr, gels_qr, geqrf,
-                     gerbt, gesv, gesv_mixed, gesv_mixed_gmres, gesv_nopiv,
-                     gesv_rbt, getrf, getrf_nopiv, getrf_tntpiv, getri, getri_oop,
-                     getrs, getrs_nopiv, norm1est, pocondest, posv, posv_mixed,
-                     posv_mixed_gmres, potrf, potri, potrs, trcondest, trtri,
-                     trtrm, unmlq, unmqr)
+# rbt_generate, TriangularFactors, BandLU and HermitianFactors live in .linalg,
+# as they do there
+from .linalg import (bdsqr, cholqr, gbmm, gbsv, gbtrf, gbtrs, ge2tb, ge2tb_band,
+                     gecondest, gelqf, gels, gels_cholqr, gels_qr, geqrf, gerbt,
+                     gesv, gesv_mixed, gesv_mixed_gmres, gesv_nopiv, gesv_rbt,
+                     getrf, getrf_nopiv, getrf_tntpiv, getri, getri_oop, getrs,
+                     getrs_nopiv, hb2st, hbmm, he2hb, he2hb_q, heev, heev_range,
+                     eig_count, hegst, hegv_range, hegv, hesv, hetrf, hetrs,
+                     norm1est, pbsv, pbtrf, pbtrs, pocondest, posv, posv_mixed,
+                     posv_mixed_gmres, potrf, potri, potrs, stedc, stedc_deflate,
+                     stedc_merge, stedc_secular, stedc_solve, stedc_sort,
+                     stedc_z_vector, stein, steqr, steqr2, sterf, sterf_bisect,
+                     svd, svd_range, svd_vals, syev, sygst, sygv, sysv, sytrf,
+                     sytrs, tb2bd, tbsm, tbsm_pivots, tbsmPivots, trcondest,
+                     trtri, trtrm, unmbr_ge2tb, unmbr_tb2bd, unmlq, unmqr,
+                     unmtr_hb2st, unmtr_he2hb)
 from . import linalg, obs, robust, serve
+from . import simplified
 from .robust import (FaultPlan, FaultSpec, RetryPolicy, SolveReport,
                      reduce_info)
+from .serve import gels_batched, gesv_batched, posv_batched
 from .utils import trace
 
 __version__ = "0.1.0"

@@ -683,6 +683,13 @@ def distribution_grid(*operands):
     return None
 
 
+def refuse_grid(grid) -> None:
+    """Raise for a process grid of more than one device handed to a driver
+    directly (the ``grid=`` argument of the JAX package's stage functions)."""
+    if grid is not None and getattr(grid, "size", 1) > 1:
+        raise SlateError(_NOT_PORTED_GRID)
+
+
 def as_array(A, device=None) -> torch.Tensor:
     """Accept Matrix-likes or raw arrays at API boundaries; return the logical
     tensor (raw non-tensor data goes onto ``device``, default ``cuda``)."""
@@ -738,6 +745,10 @@ def from_reference_state(d: dict, device=None) -> BaseMatrix:
     return w
 
 
+def _index_tensor(idx, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(idx), dtype=torch.int64, device=device)
+
+
 def from_reference_factors(d: dict, device=None):
     """Rebuild a JAX-package factorization as the port's, from a plain dict —
     the factorization counterpart of :func:`from_reference_state`.
@@ -747,7 +758,12 @@ def from_reference_factors(d: dict, device=None):
       ``getrs``/``getri``/``gecondest``;
     * ``{"packed": ..., "tau": ..., "T": ...}`` (a ``TriangularFactors``)
       gives the port's ``TriangularFactors`` for ``unmqr``/``unmlq``
-      (:meth:`slate_tpu_torch.linalg.qr.TriangularFactors.from_reference`).
+      (:meth:`slate_tpu_torch.linalg.qr.TriangularFactors.from_reference`);
+    * ``{"lu": ..., "perms": ..., "kl", "ku", "nb"}`` (a ``BandLU``, its
+      ``_asdict()`` as numpy) gives the port's ``BandLU`` for ``gbtrs``;
+    * ``{"L", "T", "T_fac", "perm", "inv_perm", "nb"}`` (a
+      ``HermitianFactors``, ``T_fac`` a BandLU dict) gives the port's
+      ``HermitianFactors`` for ``hetrs``.
 
     Placed on ``device`` (default ``cuda``)."""
     if "LU" in d:
@@ -758,4 +774,17 @@ def from_reference_factors(d: dict, device=None):
     if "packed" in d:
         from ..linalg.qr import TriangularFactors
         return TriangularFactors.from_reference(d, device)
+    if "perms" in d:
+        from ..linalg.band import BandLU
+        lu_ = to_tensor(d["lu"], device)
+        return BandLU(lu=lu_, perms=_index_tensor(d["perms"], lu_.device),
+                      kl=int(d["kl"]), ku=int(d["ku"]), nb=int(d["nb"]))
+    if "T_fac" in d:
+        from ..linalg.indefinite import HermitianFactors
+        L = to_tensor(d["L"], device)
+        return HermitianFactors(
+            L=L, T=to_tensor(d["T"], L.device),
+            T_fac=from_reference_factors(d["T_fac"], L.device),
+            perm=_index_tensor(d["perm"], L.device),
+            inv_perm=_index_tensor(d["inv_perm"], L.device), nb=int(d["nb"]))
     raise SlateError(f"no factorization with keys {sorted(d)}")

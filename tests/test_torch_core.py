@@ -124,6 +124,21 @@ def test_entry_points_default_to_cuda():
             st.norm1est(lambda x: x, lambda x: x, 4, torch.float64)
     else:
         assert st.norm1est(lambda x: x, lambda x: x, 4, torch.float64).is_cuda
+    # the eigenvalue / SVD, band and indefinite entry points take numpy data
+    # onto cuda the same way
+    sym = a[:3, :3] + a[:3, :3].T + 8 * np.eye(3)
+    d, e, b = np.ones(4), np.ones(3), np.ones((3, 1))
+    for call in (lambda: st.heev(sym), lambda: st.svd(a), lambda: st.svd_vals(a),
+                 lambda: st.heev_range(sym, il=0, iu=2), lambda: st.hegv(1, sym, sym),
+                 lambda: st.sterf(d, e), lambda: st.stedc(d, e), lambda: st.steqr(d, e),
+                 lambda: st.sterf_bisect(d, e), lambda: st.bdsqr(d, e),
+                 lambda: st.gbsv(sym, b, kl=1, ku=1), lambda: st.pbsv(sym, b, kd=1),
+                 lambda: st.hesv(sym, b)):
+        if not torch.cuda.is_available():
+            with pytest.raises(st.SlateError, match="CUDA"):
+                call()
+        else:
+            assert next(x for x in call() if isinstance(x, torch.Tensor)).is_cuda
     A = st.Matrix.from_array(torch.from_numpy(a))
     assert A.device.type == "cpu"
     assert st.Matrix.from_array(a, device="cpu").device.type == "cpu"
@@ -352,3 +367,24 @@ def test_spans_and_trace():
         assert st.trace.finish() is None       # idempotent
     finally:
         os.remove(path)
+
+
+def test_timers_sync_the_card_only_while_tracing(monkeypatch):
+    """A driver's phase timers bound to a CUDA device never wait for the
+    card while tracing is off; with ``trace.on()`` each phase ends in one
+    device sync (the phase split)."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: calls.append(device))
+    timers = st.trace.Timers(device=torch.device("cuda"))
+    with timers.time("a"):
+        pass
+    assert calls == [] and set(timers) == {"a"}
+    st.trace.on()
+    try:
+        with timers.time("a"):
+            pass
+        with timers.time("b"):
+            pass
+    finally:
+        st.trace.off()
+    assert len(calls) == 2 and set(timers) == {"a", "b"}

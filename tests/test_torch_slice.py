@@ -235,3 +235,68 @@ def test_serve_check_matches_jax():
         xj = np.asarray(xj, dtype=np.float64)
         assert got["info"] == int(ij) == 0
         assert np.linalg.norm(got["x"] - xj) <= 1e-4 * np.linalg.norm(xj)
+
+
+# ---------------------------------------------------------------------------
+# the eigenvalue and SVD slice: a HermitianMatrix of the JAX package carried
+# across with from_reference_state, then heev and svd through the top-level
+# names against the JAX package's (f64: values within 1e-12·‖A‖₂, vectors by
+# the sign-free test |diag(Z_jaxᵀ Z_port)| >= 1 − 1e-10); and the eig phase
+# of chip_smoke.py at a small size on the CPU with its checks (the f32 gates)
+# ---------------------------------------------------------------------------
+
+SMALL_EIG = {"n": 96, "two_stage_n": 64, "small_n": 64, "method_n": 40,
+             "check_n": 48, "range_k": 8, "band_k": 4}
+
+
+@pytest.mark.parametrize("method", ["fused", "two_stage"])
+def test_eig_slice_matches_jax(method):
+    rng = np.random.default_rng(5)
+    m = rng.standard_normal((48, 48))
+    a = (m + m.T) / 2
+    Aj = sj.HermitianMatrix.from_array("upper", np.triu(a), nb=16)
+    state = {"class": "HermitianMatrix", "array": np.asarray(Aj.array),
+             "uplo": "upper", "nb": 16}
+    At = st.core.matrix.from_reference_state(state, device="cpu")
+    opts = {"block_size": 16}
+    lam, Z = st.heev(At, opts, method=method, chase_pipeline=True)
+    lam_j, Z_j = sj.heev(Aj, opts, method=method)
+    scale = np.abs(np.asarray(lam_j)).max()
+    assert np.abs(lam.numpy() - np.asarray(lam_j)).max() <= 1e-12 * scale
+    assert np.abs(np.sum(Z.numpy() * np.asarray(Z_j), axis=0)).min() >= 1 - 1e-10
+    S, U, VT = st.svd(st.Matrix.from_array(m, nb=16, device="cpu"), opts, method=method,
+                      chase_pipeline=True)
+    S_j, U_j, VT_j = sj.svd(sj.Matrix.from_array(m, nb=16), opts, method=method)
+    assert np.abs(S.numpy() - np.asarray(S_j)).max() <= 1e-12 * float(S_j[0])
+    assert np.abs(np.sum(U.numpy() * np.asarray(U_j), axis=0)).min() >= 1 - 1e-10
+
+
+def test_eig_path_on_the_cpu():
+    res = cs.eig_path("cpu", SMALL_EIG)
+    cs.check_eig_path(res, SMALL_EIG)
+    assert res["svd_driver"] == "gesvd"
+    assert set(res["times"]) >= {"heev_values_s", "heev_vectors_s", "svd_vals_s",
+                                 "heev_two_stage_values_s", "svd_two_stage_values_s"}
+    assert set(res["heev_two_stage_phases"]) >= {"heev::he2hb", "heev::hb2st", "heev::stev"}
+    assert set(res["svd_two_stage_phases"]) >= {"svd::ge2tb", "svd::bdsqr"}
+    n = SMALL_EIG["n"]
+    a = cs.sym_normal(n, torch.float32, "cpu", cs.SEED + 50).numpy()
+    lam_j, _ = sj.heev(a, uplo="lower", want_vectors=False)
+    lam, _ = st.heev(torch.from_numpy(a), uplo="lower", want_vectors=False)
+    assert np.abs(lam.numpy() - np.asarray(lam_j)).max() <= 1e-5 * np.abs(lam_j).max()
+
+
+def test_small_eig_and_the_card_check_on_the_cpu():
+    """The n = 4096 / 512 checks (here 64 / 40) and the card-vs-CPU routine
+    list on the CPU, its first entries against the JAX package."""
+    res = cs.small_eig("cpu", SMALL_EIG)
+    cs.check_small_eig(res, SMALL_EIG)
+    host = cs.eig_routines("cpu", SMALL_EIG["check_n"])
+    assert cs.compare_eig_routines(host, host)
+    n = SMALL_EIG["check_n"]
+    g = np.random.default_rng(cs.SEED + 70).standard_normal((n, n))
+    a = (g + g.T) / 2
+    lam_j = np.asarray(sj.heev(a, method="two_stage")[0])
+    assert np.abs(host["heev_auto_values"].numpy() - lam_j).max() <= 1e-12 * np.abs(lam_j).max()
+    assert host["pbsv_info"] == host["gbsv_info"] == host["hesv_info"] == 0
+    assert host["gbtrf_singular_info"] > 0 and host["pbtrf_non_spd_info"] > 0
