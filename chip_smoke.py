@@ -73,7 +73,20 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     ``hesv`` at n = 4096 f32, ``MethodEig.QR`` and ``Bisection`` at n = 512
     f64 (with their phase split: steqr's sweep runs on the host), every new routine on the card against the CPU at n = 256 f64
     (values and both chases' (d, e) to 1e-10, vectors sign-free, ``info``
-    equal), and the phase's peak device memory.
+    equal), and the phase's peak device memory;
+11. the tester entry point (``python -m slate_tpu_torch.testing``), with the
+    kernels' launch counters set to 0 just before and read just after: its
+    ``main(["all", "--quick", "--type", "s,d", "--device", "cuda"])`` (152
+    rows, every one must pass), then ``posv``, ``gesv``, ``norm`` and ``gesv_f64ir`` at
+    n = 16384 f32 (nb 2048, best of 3; the norm row must launch both
+    kernels) and ``gecondest`` at n = 4096 through ``run_sweep``; then,
+    outside the counted run, matgen's random kinds at 16384^2 f32 (seconds,
+    peak memory, four tiles against the CPU port's ``generate_tile``: bit for
+    bit, randn within RANDN_TILE_ULP) and ``poev_geo`` at 4096 against its
+    spectrum, ``gemm_f64emu`` at 4096^2 f64 against the f64 matmul (< 1e-12,
+    the JAX package's bound), and the LAPACK-style API at n = 2048 (sgesv,
+    dposv, sgels, ssyev, sgesvd, slange against numpy, a singular sgesv with
+    ``info`` > 0).
 
 The last lines are a JSON line of per-kernel numbers, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -82,10 +95,13 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
+import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -122,10 +138,11 @@ MODES = (cn._MODE_GE, cn._MODE_LOWER, cn._MODE_UPPER, cn._MODE_LOWER_STRICT,
 # kernel vs plain: a max is exact; sums differ only in summation order
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 ROUNDS = 5           # interleaved timing rounds (kernel, library, library, kernel)
-# the main path's shapes (A, and R and X of B - A X), the ragged test shapes, and
-# tall-skinny / short-wide inputs that split the reduced dimension
-KERNEL_SHAPES = [(N, N), (N, NRHS), (5, 3), (1, 129), (257, 131), (8, 8), (300, 200),
-                 (3, 200), (131072, 64), (64, 70000)]
+# the main path's shapes (A, and R and X of B - A X), the tester path's (the quick
+# sweep's 64² and 96² norm and gecondest rows, gecondest at 4096²), the ragged
+# test shapes, and tall-skinny / short-wide inputs that split the reduced dimension
+KERNEL_SHAPES = [(N, N), (N, NRHS), (64, 64), (96, 96), (4096, 4096), (5, 3), (1, 129),
+                 (257, 131), (8, 8), (300, 200), (3, 200), (131072, 64), (64, 70000)]
 
 REPLACES = {
     "col_reduce": "slate_tpu/ops/pallas_norms.py:202",
@@ -1681,6 +1698,299 @@ def full_serve_path() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the tester phase: the user-facing entry point (python -m slate_tpu_torch.testing),
+# matgen on the card, the emulated-f64 gemm and the LAPACK-style API
+
+TESTER = {"quick": ["all", "--quick", "--type", "s,d"], "quick_rows": 152,
+          "n": N, "nb": NB, "repeat": 3,
+          "full": ("posv", "gesv", "norm", "gesv_f64ir"), "condest_n": 4096,
+          "matgen_n": N, "matgen_kinds": ("randn", "rand", "rands", "randb", "randr"),
+          "spectrum_n": 4096, "f64emu_n": 4096, "lapack_n": 2048}
+# card vs the CPU port for randn tiles: the erf_inv polynomial's log/log1p/sqrt
+# round by the card's libdevice (the CPU port is within 4 ulp of the JAX package)
+RANDN_TILE_ULP = 8
+# the geo spectrum is powf(c, e_i) with e_i = -i/(n-1) in float32 as the device
+# rounds it (the card divides by a scalar as a multiply by its reciprocal, up to
+# 1 ulp from the CPU's quotient, which pow scales by ln c); it is held against
+# float64 c^e_i of those same e_i rounded to float32, and CUDA's powf is within
+# 4 ulp of that (the CUDA C++ Programming Guide's table of maximum ulp errors)
+SIGMA_ULP = 4
+TILE = 256
+
+
+def _table_rows(text: str) -> list:
+    """The rows of a ``format_table`` output: (routine, type, m, error,
+    time_s, gflops, status) per row, read from the fixed-width columns."""
+    lines = text.splitlines()
+    start = next(i for i, line in enumerate(lines) if line.startswith("routine "))
+    rows = []
+    for line in lines[start + 2:]:
+        if " tests: " in line and line.split()[0].isdigit():
+            break
+        c = re.split(r"\s{2,}", line.strip())
+        rows.append({"routine": c[0], "type": c[1], "m": int(c[2]), "error": c[7],
+                     "time_s": float(c[8]) if c[8] != "-" else 0.0,
+                     "gflops": c[9], "status": c[11]})
+    return rows
+
+
+def tester_quick(device, args=TESTER["quick"]) -> dict:
+    """``main(["all", "--quick", ...])`` of the tester CLI: its exit code, the
+    rows of its table, the summary line and the five slowest rows."""
+    from slate_tpu_torch.testing import __main__ as tmain
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = tmain.main(list(args) + ["--device", str(device)])
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    rows = _table_rows(text)
+    slowest = sorted(rows, key=lambda r: -r["time_s"])[:5]
+    return {"rc": rc, "rows": rows, "wall_s": wall,
+            "summary": text.strip().splitlines()[-1],
+            "slowest": [f"{r['routine']} {r['type']} {r['m']}: {r['time_s']:.4f} s"
+                        for r in slowest]}
+
+
+def tester_full(device, sizes: dict = TESTER) -> dict:
+    """The full-width rows through ``run_sweep``: each routine of
+    ``sizes["full"]`` at n x n f32 (nb, best of ``repeat``), the norm kernels'
+    launches of each row, and ``gecondest`` at ``condest_n`` (its host check,
+    ``np.linalg.cond``, is O(n^3) in numpy)."""
+    from slate_tpu_torch.testing.driver import run_sweep
+
+    n, out = sizes["n"], {}
+    for routine in sizes["full"]:
+        before = dict(cn.LAUNCHES)
+        (r,) = run_sweep([routine], [(n, n, n)], ["s"], [sizes["nb"]],
+                         repeat=sizes["repeat"], device=device)
+        out[routine] = {"status": r.status, "message": r.message, "error": r.error,
+                        "time_s": r.time_s, "gflops": r.gflops,
+                        "launches": {k: cn.LAUNCHES[k] - before[k] for k in before}}
+    c = sizes["condest_n"]
+    (r,) = run_sweep(["gecondest"], [(c, c, c)], ["s"], [sizes["nb"]],
+                     device=device)
+    out["gecondest"] = {"status": r.status, "message": r.message,
+                        "error": r.error, "time_s": r.time_s, "gflops": None}
+    return out
+
+
+def _ulp_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b| in ulps of a (float32)."""
+    a64, b64 = a.double(), b.double()
+    spacing = torch.from_numpy(np.spacing(np.abs(a.numpy()))).double()
+    return float(((a64 - b64).abs() / spacing).max())
+
+
+def matgen_checks(device, sizes: dict = TESTER) -> dict:
+    """The random kinds at n x n f32 on ``device``: seconds and peak memory
+    of each, and four TILE x TILE tiles (two corners, the far corner, one
+    unaligned interior tile) against the CPU port's ``generate_tile``: bit for
+    bit for the uniform family, within RANDN_TILE_ULP for randn.  Then
+    ``poev_geo`` at spectrum_n against its requested spectrum."""
+    from slate_tpu_torch import matgen
+
+    n, out = sizes["matgen_n"], {}
+    cuda = torch.device(device).type == "cuda"
+    corners = ((0, 0), (0, n - TILE), (n - TILE, n - TILE),
+               (n // 2 - 77, n // 3 + 5))
+    for kind in sizes["matgen_kinds"]:
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        A, _ = matgen.generate_matrix(kind, n, n, dtype=torch.float32, seed=SEED,
+                                      device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        out[f"{kind}_s"] = time.perf_counter() - t0
+        if cuda:
+            out[f"{kind}_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        worst = 0.0
+        for i0, j0 in corners:
+            got = A[i0:i0 + TILE, j0:j0 + TILE].cpu()
+            want = matgen.generate_tile(kind, i0, j0, TILE, TILE, n, n,
+                                        dtype=torch.float32, seed=SEED, device="cpu")
+            worst = max(worst, _ulp_gap(want, got))
+        out[f"{kind}_tile_max_ulp"] = worst
+        del A
+    m = sizes["spectrum_n"]
+    A, S = matgen.generate_matrix("poev_geo", m, m, dtype=torch.float32,
+                                  cond=100.0, seed=SEED, device=device)
+    # the exponents as the port rounds them on this device, the power in float64
+    e = (-torch.arange(m, dtype=torch.float32, device=device) / max(m - 1, 1)).cpu()
+    want = torch.pow(torch.tensor(100.0, dtype=torch.float64), e.double()).float()
+    lam = torch.linalg.eigvalsh(A.double()).cpu()
+    out["poev_geo_sigma_max_ulp"] = _ulp_gap(want, S.cpu())
+    out["poev_geo_symmetric"] = bool(torch.equal(A, A.T))
+    out["poev_geo_eig_vs_sigma"] = float(
+        (lam - torch.sort(S.cpu().double()).values).abs().max() / S.max().item())
+    return out
+
+
+def check_matgen(out: dict, sizes: dict = TESTER) -> None:
+    for kind in sizes["matgen_kinds"]:
+        bound = RANDN_TILE_ULP if kind == "randn" else 0
+        require(out[f"{kind}_tile_max_ulp"] <= bound,
+                f"matgen {kind} tiles {out[f'{kind}_tile_max_ulp']} ulp from the "
+                f"CPU port's generate_tile (bound {bound})")
+    require(out["poev_geo_sigma_max_ulp"] <= SIGMA_ULP,
+            f"poev_geo spectrum {out['poev_geo_sigma_max_ulp']} ulp from c^e in float64")
+    require(out["poev_geo_symmetric"], "poev_geo is not symmetric")
+    require(out["poev_geo_eig_vs_sigma"] <= gate(torch.float32, sizes["spectrum_n"]),
+            "poev_geo eigenvalues miss the requested spectrum")
+
+
+def f64emu_check(device, n: int = TESTER["f64emu_n"]) -> dict:
+    """``gemm_f64emu`` of n x n f64 operands against the library's f64 matmul,
+    under the JAX package's own bound (tests/test_blas.py:239-262: max
+    relative error < 1e-12), with both timed (a warm call each), and
+    ``blas.gemm`` under
+    ``Options(f64_emulation=True)`` on the same operands."""
+    from slate_tpu_torch.ops import f64emu
+
+    A = randn((n, n), torch.float64, device, SEED + 60)
+    B = randn((n, n), torch.float64, device, SEED + 61)
+    times, step = _timed(device)
+    slate.gemm_f64emu(A, B)                 # warm-up: library handles, workspaces
+    C = step("gemm_f64emu", lambda: slate.gemm_f64emu(A, B))
+    torch.matmul(A, B)
+    ref = step("matmul_f64", lambda: torch.matmul(A, B))
+    scale = float(ref.abs().max())
+    err = float((C - ref).abs().max()) / scale
+    C2 = slate.gemm(2.0, A, B, -0.5, torch.ones_like(A), {"f64_emulation": True})
+    err2 = float((C2 - (2.0 * ref - 0.5)).abs().max()) / (2.0 * scale)
+    return {"max_rel_err": err, "blas_gemm_max_rel_err": err2,
+            "bf16_products": f64emu._bf16_products(torch.device(device)),
+            "times": times}
+
+
+def check_f64emu(out: dict) -> None:
+    require(out["max_rel_err"] < 1e-12,
+            f"gemm_f64emu error {out['max_rel_err']:.3e} >= 1e-12")
+    require(out["blas_gemm_max_rel_err"] < 1e-12,
+            f"gemm f64_emulation error {out['blas_gemm_max_rel_err']:.3e} >= 1e-12")
+
+
+def lapack_checks(device, n: int = TESTER["lapack_n"]) -> dict:
+    """The LAPACK-style API (numpy in, numpy out, ``info`` returned) on
+    ``device`` at n against numpy/scipy: sgesv, dposv, sgels (2n x n), ssyev,
+    sgesvd and slange, each ``info`` 0, and a singular sgesv with ``info`` > 0."""
+    from slate_tpu_torch import lapack_api as la
+
+    rng = np.random.default_rng(SEED + 70)
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    b = rng.standard_normal((n, 4)).astype(np.float32)
+    out = {}
+    x, ipiv, info = la.sgesv(a, b, device=device)
+    out["sgesv_info"] = info
+    out["sgesv_be"] = float(np.linalg.norm(b - a @ x) / (np.linalg.norm(a) * np.linalg.norm(x)))
+    g = rng.standard_normal((n, n))
+    spd = g @ g.T / n + 2.0 * np.eye(n)
+    bd = rng.standard_normal((n, 4))
+    x, info = la.dposv("l", spd, bd, device=device)
+    out["dposv_info"] = info
+    out["dposv_be"] = float(np.linalg.norm(bd - spd @ x) / (np.linalg.norm(spd) * np.linalg.norm(x)))
+    at = rng.standard_normal((2 * n, n)).astype(np.float32)
+    bt = rng.standard_normal((2 * n, 2)).astype(np.float32)
+    x = la.sgels("n", at, bt, device=device)[:n]
+    out["sgels_normal_eq"] = float(np.linalg.norm(at.T @ (at @ x - bt))
+                                   / (np.linalg.norm(at) ** 2 * np.linalg.norm(x)))
+    sym = ((a + a.T) / 2).astype(np.float32)
+    lam, z = la.ssyev("v", "l", sym, device=device)
+    ref = np.linalg.eigvalsh(sym.astype(np.float64))
+    out["ssyev_values"] = float(np.abs(lam - ref).max() / np.abs(ref).max())
+    out["ssyev_residual"] = float(np.linalg.norm(sym @ z - z * lam) / np.linalg.norm(sym))
+    s, u, vt = la.sgesvd("s", "s", a, device=device)
+    sref = np.linalg.svd(a.astype(np.float64), compute_uv=False)
+    out["sgesvd_values"] = float(np.abs(s - sref).max() / sref[0])
+    out["sgesvd_reconstruction"] = float(np.linalg.norm(a - (u * s) @ vt) / np.linalg.norm(a))
+    for which, want in (("m", np.abs(a).max()), ("o", np.abs(a).sum(0).max()),
+                        ("i", np.abs(a).sum(1).max()), ("f", np.linalg.norm(a))):
+        out[f"slange_{which}"] = abs(la.slange(which, a, device=device) - want) / want
+    sing = a.copy()
+    sing[:, 7] = 0.0
+    out["sgesv_singular_info"] = la.sgesv(sing, b, device=device)[2]
+    return out
+
+
+def check_lapack(out: dict, n: int = TESTER["lapack_n"]) -> None:
+    g32 = float(gate(torch.float32, n))
+    for key in ("sgesv_info", "dposv_info"):
+        require(out[key] == 0, f"{key} = {out[key]}")
+    require(out["sgesv_singular_info"] > 0, "singular sgesv gave info 0")
+    require(out["sgesv_be"] <= g32, "sgesv backward error over the f32 gate")
+    require(out["dposv_be"] <= gate(torch.float64, n), "dposv backward error over the f64 gate")
+    require(out["sgels_normal_eq"] <= 100 * g32, "sgels normal-equations residual")
+    for key in ("ssyev_values", "ssyev_residual", "sgesvd_values", "sgesvd_reconstruction"):
+        require(out[key] <= g32, f"{key} {out[key]:.3e} over the f32 gate")
+    for which in "moif":
+        require(out[f"slange_{which}"] <= 1e-5, f"slange {which} off")
+
+
+def check_tester_path(quick: dict, full: dict, sizes: dict = TESTER) -> None:
+    rows = quick["rows"]
+    require(quick["rc"] == 0, f"the quick sweep exited {quick['rc']}")
+    require(len(rows) == sizes["quick_rows"],
+            f"{len(rows)} quick rows, not {sizes['quick_rows']}")
+    bad = [f"{r['routine']} {r['type']} {r['m']}: {r['status']}" for r in rows
+           if r["status"] != "pass"]
+    require(not bad, f"quick rows not passing: {bad}")
+    for routine, r in full.items():
+        require(r["status"] == "pass", f"{routine} row: {r['status']} {r['message']}")
+
+
+def full_tester_path() -> dict:
+    """The tester entry point on the card with the kernels' launch counters set
+    to 0 just before and read just after: the quick sweep of every routine
+    (s and d) and the full-width rows; then, outside the counted run, matgen
+    at full width, ``gemm_f64emu`` and the LAPACK-style API."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in cn.LAUNCHES:
+        cn.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    quick = tester_quick("cuda")
+    full = tester_full("cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(cn.LAUNCHES)
+    say("tester_quick_summary", quick["summary"])
+    say("tester_quick_wall_s", quick["wall_s"])
+    for i, line in enumerate(quick["slowest"]):
+        say(f"tester_quick_slowest_{i + 1}", line)
+    for routine, r in full.items():
+        for key in ("status", "error", "time_s", "gflops"):
+            say(f"tester_{routine}_{key}", r[key])
+        if "launches" in r:
+            say(f"tester_{routine}_launches", json.dumps(r["launches"]))
+    say("tester_wall_s", wall)
+    say("tester_peak_memory_gib", torch.cuda.max_memory_allocated() / 2**30)
+    say("tester_launches", json.dumps(launches))
+    check_tester_path(quick, full)
+    for name in ("col_reduce", "row_sums"):
+        require(full["norm"]["launches"][name] > 0,
+                f"the norm row did not launch {name}")
+
+    t0 = time.perf_counter()
+    mg = matgen_checks("cuda")
+    _say_all("matgen", mg)
+    say("matgen_wall_s", time.perf_counter() - t0)
+    emu = f64emu_check("cuda")
+    _say_all("f64emu", emu)
+    t0 = time.perf_counter()
+    lapack = lapack_checks("cuda")
+    _say_all("lapack", lapack)
+    say("lapack_wall_s", time.perf_counter() - t0)
+    check_matgen(mg)
+    check_f64emu(emu)
+    check_lapack(lapack)
+    torch.cuda.synchronize()
+    return launches
+
+
 # the serve chaos check's flight-recorder dump (git ignores this file)
 FLIGHT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "flight_records.json")
@@ -1696,7 +2006,8 @@ def main() -> int:
     times = timing_phase()
     small_checks()
     paths = {"posv": full_path(), "general": full_general_path(),
-             "serve": full_serve_path(), "eig": full_eig_path()}
+             "serve": full_serve_path(), "eig": full_eig_path(),
+             "tester": full_tester_path()}
     kernels = []
     for name in ("col_reduce", "row_sums"):
         t = times[name]
@@ -1704,7 +2015,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
             # the serve and eig paths launch neither kernel (their counts,
-            # 0, are kept in launches_by_path)
+            # 0, are kept in launches_by_path); the tester's norm and
+            # gecondest rows do
             "launches": sum(p[name] for p in paths.values()),
             "launches_by_path": {path: p[name] for path, p in paths.items()},
             "max_abs_err": stats[name]["max_abs_err"],

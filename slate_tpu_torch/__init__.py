@@ -16,7 +16,11 @@ bisection, the subset and generalized solvers), the band solvers
 escalation-ladder engine
 (:mod:`slate_tpu_torch.robust`), and the batched solver service
 (:mod:`slate_tpu_torch.serve`: batched drivers, prepared-program cache,
-serving queue with admission control, executor pool, flight recorder).  Entry
+serving queue with admission control, executor pool, flight recorder), the
+test-matrix generator (:mod:`slate_tpu_torch.matgen`), the emulated-f64 gemm and
+refinement solves (``gemm_f64emu``/``gesv_f64ir``/``posv_f64ir``), the routine
+tester (``python -m slate_tpu_torch.testing``) and the LAPACK-style API
+(:mod:`slate_tpu_torch.lapack_api`).  Entry
 points place new data on ``cuda`` unless a ``device`` is given; matrix and
 triangular norms of real f32/f64 data on the card run hand-written CUDA kernels
 (:mod:`slate_tpu_torch.ops.cuda_norms`).  It imports neither JAX nor the JAX
@@ -59,5 +63,37 @@ from .robust import (FaultPlan, FaultSpec, RetryPolicy, SolveReport,
                      reduce_info)
 from .serve import gels_batched, gesv_batched, posv_batched
 from .utils import trace
+from . import matgen
+from .matgen import generate_matrix
+from .ops.f64emu import gemm_f64emu, gesv_f64ir, posv_f64ir
+from . import lapack_api
 
 __version__ = "0.1.0"
+VERSION = 2026_07_00   # yyyymmrr, the reference's integer form (version.cc)
+
+
+def version() -> int:
+    """Library version as the reference's yyyymmrr integer
+    (src/version.cc: slate::version())."""
+    return VERSION
+
+
+def id() -> str:  # noqa: A001 - reference name (slate::id)
+    """Git commit hash of this build, or "unknown" (src/version.cc: slate::id()).
+    A hash is reported only when git tracks this package's directory, so a
+    copy under an unrelated enclosing repository reads "unknown"."""
+    import os
+    import subprocess
+
+    try:
+        pkg = os.path.realpath(__path__[0])
+        tracked = subprocess.run(
+            ["git", "ls-files", "--error-unmatch", pkg], capture_output=True,
+            text=True, timeout=5, cwd=pkg)
+        if tracked.returncode != 0:
+            return "unknown"
+        return subprocess.run(
+            ["git", "rev-parse", "--short", "HEAD"], capture_output=True,
+            text=True, timeout=5, cwd=pkg).stdout.strip() or "unknown"
+    except (OSError, subprocess.SubprocessError):
+        return "unknown"

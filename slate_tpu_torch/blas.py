@@ -70,8 +70,14 @@ def gemm(alpha, A, B, beta, C, opts=None):
     opts = Options.make(opts)
     distribution_grid(A, B, C)
     if opts.f64_emulation:
-        raise SlateError("f64_emulation gemm is not ported yet (ROADMAP.md queue A "
-                         "item 13)")
+        # double-precision-class result from exact slices and double-f32
+        # accumulation (ops/f64emu.py); the whole alpha/beta combination
+        # happens inside the compensated accumulator, so residual-style calls
+        # keep their accuracy
+        from .ops.f64emu import gemm_f64emu
+
+        a, b, c = _operands(A, B, C)
+        return write_back(C, gemm_f64emu(a, b, alpha=alpha, beta=beta, C=c))
     if select_algo_gemm(A, B, C, opts) == MethodGemm.SUMMA:
         raise SlateError("MethodGemm.SUMMA requires the distributed tier, not "
                          "ported yet (ROADMAP.md queue A item 15)")

@@ -11,7 +11,7 @@ drivers distinguish through info codes and fallback paths (SURVEY §2.7):
   singular (LAPACK info > 0 from LU/Cholesky-class factorizations).
 - :class:`ConvergenceError` — an iterative stage (IR, GMRES-IR, eigensolver
   iteration) stalled and every declared escalation rung was exhausted.
-  Raised by ``robust.run_ladder`` (not ported yet) when the caller asks for it
+  Raised by ``robust.run_ladder`` when the caller asks for it
   (``raise_on_exhaust=True``); the built-in drivers keep LAPACK semantics
   instead — best-effort result, nonzero info, ``recovered=False`` report.
 

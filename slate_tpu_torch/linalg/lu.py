@@ -534,9 +534,13 @@ def getrs(LU, perm, B, opts=None, trans=False):
     work::trsm(L) + work::trsm(U); here: one gather + two triangular solves).
 
     ``trans``: False/'n' solves A X = B; True/'t' solves A^T X = B; 'c' solves
-    A^H X = B (the LAPACK trans codes)."""
+    A^H X = B (the LAPACK trans codes).  A vector B gives a vector X, as the
+    JAX package's triangular solves do."""
     lu_ = as_array(LU)
     b = as_array(B, device=lu_.device)
+    vec = b.ndim == 1
+    if vec:
+        b = b[:, None]
     code = _trans_code(trans)
     if code in ("t", "c"):
         # op(A) x = b  =>  U^op y = b; L^op z = y; x = perm^{-1} scatter
@@ -548,8 +552,9 @@ def getrs(LU, perm, B, opts=None, trans=False):
             x[_as_perm(perm, z.device)] = z
         else:
             x = z
-        return write_back(B, x)
-    return write_back(B, lu_factored_solve(lu_, perm, b))
+    else:
+        x = lu_factored_solve(lu_, perm, b)
+    return write_back(B, x[:, 0] if vec else x)
 
 
 def getrs_nopiv(LU, B, opts=None, trans=False):

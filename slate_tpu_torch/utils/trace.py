@@ -12,7 +12,8 @@ The device-side timeline comes from ``torch.profiler``, so this module provides 
 - When enabled (``trace.on()``), events are recorded and can be dumped as a
   chrome://tracing JSON (``trace.finish(path)``) — the portable successor of the
   reference's SVG writer.
-- ``Timers`` accumulates named phase durations (the drivers' ``timers[]`` map).
+- ``Timers`` accumulates named phase durations (the drivers' ``timers[]`` map);
+  ``phase_report`` renders one hottest-first with shares.
 - Request scopes (``request_scope``, ``batch_request_scope``) stamp a serving
   request's ``trace_id`` into every region and event recorded while they are
   open, and ``emit_span`` records a span from explicit timestamps — the
@@ -305,3 +306,22 @@ def phase_attempts(routine: str) -> Dict[int, Dict[str, float]]:
     with _events_lock:
         return {a: dict(m) for a, m in
                 _phase_attempts.get(routine, {}).items()}
+
+
+def phase_report(timers: "Timers | Dict[str, float]",
+                 min_frac: float = 0.0) -> Dict[str, Any]:
+    """Render a Timers map as the --timer-level-2 style attribution table:
+    ``{phase: {"s": seconds, "pct": share}}`` sorted hottest-first, plus
+    ``"total_s"``.  Phase spans are host wall time; on the card a phase is the
+    device's time only where it ends in a sync (``Timers`` syncs under
+    ``trace.on()``).  ``min_frac`` drops phases below that share (compact
+    bench lines)."""
+    items = [(k, float(v)) for k, v in dict(timers).items()]
+    total = sum(v for _, v in items)
+    out: Dict[str, Any] = {"total_s": round(total, 6)}
+    for k, v in sorted(items, key=lambda kv: -kv[1]):
+        frac = v / total if total > 0 else 0.0
+        if frac < min_frac:
+            continue
+        out[k] = {"s": round(v, 6), "pct": round(100.0 * frac, 1)}
+    return out
