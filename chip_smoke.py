@@ -86,7 +86,23 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     spectrum, ``gemm_f64emu`` at 4096^2 f64 against the f64 matmul (< 1e-12,
     the JAX package's bound), and the LAPACK-style API at n = 2048 (sgesv,
     dposv, sgels, ssyev, sgesvd, slange against numpy, a singular sgesv with
-    ``info`` > 0).
+    ``info`` > 0);
+12. the distributed tier (``slate_tpu_torch.parallel``) on a 1x1 grid over a
+    NCCL process group of one rank (one card: real process group, real
+    collectives, every distributed code path), with the kernels' launch
+    counters set to 0 just before and read just after: ``posv_distributed``
+    and ``potrf_pipelined`` at 16384^2 f32 (nb 2048), ``gesv_distributed`` at
+    16384^2 f32 (10 right-hand sides), ``gemm_allgather`` and ``gemm_ring`` at
+    16384^2 f32, ``gels_cholqr_distributed`` and ``tsqr_distributed`` at
+    131072 x 4096 f32 (16 right-hand sides), ``geqrf_distributed`` at 8192^2,
+    ``posv_mixed_distributed`` at 16384^2 f64, ``norm_distributed`` (one, inf,
+    max, fro) at 16384^2 f32 (that step must launch both kernels),
+    ``getri_distributed`` and ``potri_distributed`` at 4096^2 f64 and
+    ``gesv_batched_distributed`` at the serving configuration (batch 32,
+    bucket 64); each step's seconds beside the single-device port's on the
+    same input, its error under the single-device phase's gate, its
+    agreement with the single-device port, the grid, the world size and the
+    phase's peak device memory.
 
 The last lines are a JSON line of per-kernel numbers, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -140,7 +156,8 @@ RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 ROUNDS = 5           # interleaved timing rounds (kernel, library, library, kernel)
 # the main path's shapes (A, and R and X of B - A X), the tester path's (the quick
 # sweep's 64² and 96² norm and gecondest rows, gecondest at 4096²), the ragged
-# test shapes, and tall-skinny / short-wide inputs that split the reduced dimension
+# test shapes, and tall-skinny / short-wide inputs that split the reduced dimension;
+# every configuration the paths launch is checked again after them (path_shapes_phase)
 KERNEL_SHAPES = [(N, N), (N, NRHS), (64, 64), (96, 96), (4096, 4096), (5, 3), (1, 129),
                  (257, 131), (8, 8), (300, 200), (3, 200), (131072, 64), (64, 70000)]
 
@@ -1298,6 +1315,51 @@ def kernel_phase() -> dict:
     return stats
 
 
+def path_shapes_phase(launched, stats: dict) -> None:
+    """Each kernel against its plain version at every configuration the paths
+    launched it with (``cuda_norms.LAUNCHED``: shape, dtype, row stride,
+    base alignment, mask, unit diagonal, op), on new random data laid out
+    the same way (a view with that row stride, one element into its buffer
+    where the launch's base was not 16-byte aligned)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    op_name = {code: op for op, code in cn._OPS.items()}
+    views = {}
+    for name, (m, n), dtype, lda, base_aligned, mode, unit, *op in sorted(launched,
+                                                                        key=str):
+        key = ((m, n), dtype, lda, base_aligned)
+        if key not in views:
+            views.clear()
+            off = 0 if base_aligned else 1
+            buf = torch.randn(off + (m - 1) * lda + n, generator=gen, device="cuda",
+                              dtype=dtype)
+            views[key] = torch.as_strided(buf, (m, n), (lda, 1), off)
+        a = views[key]
+        require(cn.is_aligned(a) == (base_aligned and lda * a.element_size() % 16 == 0),
+                f"{name} {(m, n)}: layout")
+        what = f"path shape {name} {(m, n)} {dtype} lda={lda} mode={mode} unit={unit}"
+        if name == "col_reduce":
+            o = op_name[op[0]]
+            errs = _compare(cn.col_reduce(a, mode, bool(unit), o),
+                            cn.col_reduce_plain(a, mode, bool(unit), o),
+                            o == "max", RTOL[dtype], f"{what} {o}")
+        else:
+            errs = _compare(cn.row_sums(a, mode, bool(unit)),
+                            cn.row_sums_plain(a, mode, bool(unit)),
+                            False, RTOL[dtype], what)
+        s = stats[name]
+        s["max_abs_err"] = max(s["max_abs_err"], errs[0])
+        s["max_rel_err"] = max(s["max_rel_err"], errs[1])
+        s["checks"] += 1
+        s["path_shape_checks"] = s.get("path_shape_checks", 0) + 1
+    views.clear()
+    torch.cuda.synchronize()
+    say("path_shapes", json.dumps(sorted({f"{x[0]} {x[1][0]}x{x[1][1]} {str(x[2])[6:]}"
+                                          for x in launched})))
+    for name, s in stats.items():
+        say(f"{name}_path_shape_checks", s.get("path_shape_checks", 0))
+        say(f"{name}_max_abs_err", s["max_abs_err"])
+
+
 def time_ms(fn, reps: int = 20) -> float:
     """Mean device time per call from CUDA events over ``reps`` calls, after
     warm-up.  The 1 GiB operand is 20x the 50 MB L2, so every call reads it
@@ -1991,6 +2053,259 @@ def full_tester_path() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the distributed tier (slate_tpu_torch.parallel) on a 1x1 grid, through the
+# public API (any device)
+# ---------------------------------------------------------------------------
+
+# full width: the SPD solve and the lookahead pipeline at the potrf bench size
+# and blocking (bench.py:284-304, 530-565), gesv and SUMMA at 16384^2, the
+# least squares at the gels bench shape (bench.py:376-391), CAQR at 8192^2, the
+# mixed SPD solve in f64, the norms, the inverses at 4096^2 f64 and the batched
+# solve at the serving configuration (batch 32, bucket 64)
+DIST = {"n": N, "nb": NB, "nrhs": NRHS, "gesv_nb": 256, "ls_m": 131072,
+        "ls_n": 4096, "ls_nrhs": 16, "geqrf_n": 8192, "geqrf_nb": 256,
+        "mixed_n": N, "inv_n": 4096, "batch": 32, "bucket": 64, "batch_nrhs": 1}
+
+
+def _rel(X, Y) -> float:
+    """||X - Y||_F / ||Y||_F in float64 (no norm kernel)."""
+    return float(torch.linalg.norm((X - Y).double()) / torch.linalg.norm(Y.double()))
+
+
+def _agree(A, X, Y) -> float:
+    """How far two solutions of A X = B are apart in the backward sense:
+    ||A (X - Y)||_F / (||A||_F ||Y||_F) (no norm kernel)."""
+    D = torch.matmul(A, (X - Y).to(A.dtype))
+    return float(torch.linalg.norm(D.double())
+                 / (torch.linalg.norm(A.double()) * torch.linalg.norm(Y.double())))
+
+
+def dist_path(device, sizes: dict = DIST) -> dict:
+    """Every distributed driver of the slice on a 1x1 grid of ``device``
+    (NCCL on the card, gloo on the CPU), each beside the single-device port on
+    the same input: seconds of both, the error under the tester's gate and
+    the agreement of the two results.  Each step ends in a device sync."""
+    import torch.distributed as dist
+    from slate_tpu_torch import parallel as par
+
+    grid = par.ProcessGrid.cached(1, 1, device=device)
+    out = {"grid": f"{grid.p}x{grid.q} {grid.order}",
+           "world_size": dist.get_world_size(), "backend": str(dist.get_backend())}
+    times, step = _timed(device)
+    f32, f64 = torch.float32, torch.float64
+    n, nb, k = sizes["n"], sizes["nb"], sizes["nrhs"]
+    g32 = gate(f32, n)
+
+    S = spd(n, torch.Generator(device=device).manual_seed(SEED + 80), device, f32)
+    B = randn((n, k), f32, device, SEED + 81)
+    Xd = step("posv_dist_s", lambda: par.gather(par.posv_distributed(S, B, grid, nb=nb)))
+    Xs = step("posv_single_s", lambda: slate.posv(
+        S, B, {"target": "tiled", "block_size": nb}, uplo="lower")[0])
+    out["posv_error"] = backward_error(S, Xd, B)
+    out["posv_vs_single"] = _rel(Xd, Xs)
+    del Xd, Xs
+    Ld = step("potrf_pipelined_dist_s", lambda: par.potrf_pipelined(S, grid, nb=nb))
+    Ls = step("potrf_pipelined_single_s", lambda: slate.potrf(
+        S, {"target": "tiled", "block_size": nb}, uplo="lower")[0])
+    V = randn((n, PROBES), f32, device, SEED + 82)
+    out["potrf_pipelined_error"] = _rel(torch.matmul(Ld, torch.matmul(Ld.T, V)),
+                                        torch.matmul(S, V))
+    out["potrf_pipelined_vs_single"] = _rel(Ld, Ls)
+    del Ld, Ls, S, B, V
+
+    A = randn((n, n), f32, device, SEED + 83)
+    B = randn((n, k), f32, device, SEED + 84)
+    Xd, info = step("gesv_dist_s", lambda: par.gesv_distributed(
+        A, B, grid, nb=sizes["gesv_nb"]))
+    Xd = par.gather(Xd)
+    Xs = step("gesv_single_s", lambda: slate.gesv(A, B)[0])
+    out["gesv_info"] = int(info)
+    out["gesv_error"] = backward_error(A, Xd, B)
+    out["gesv_vs_single"] = _agree(A, Xd, Xs)
+    del Xd, Xs, B
+
+    for kind in ("one", "inf", "max", "fro"):
+        before = dict(cn.LAUNCHES)
+        v = step(f"norm_{kind}_dist_s", lambda: float(par.norm_distributed(kind, A, grid)))
+        out[f"norm_{kind}_launches"] = {name: cn.LAUNCHES[name] - before[name]
+                                        for name in before}
+        ref = step(f"norm_{kind}_single_s", lambda: float(slate.norm(kind, A)))
+        out[f"norm_{kind}_vs_single"] = abs(v - ref) / ref
+
+    B2 = randn((n, n), f32, device, SEED + 85)
+    Cs = step("gemm_single_s", lambda: slate.gemm(1.0, A, B2, 0.0, torch.zeros_like(A)))
+    for name in ("gemm_allgather", "gemm_ring"):
+        C = step(f"{name}_dist_s", lambda: par.gather(getattr(par, name)(A, B2, grid)))
+        out[f"{name}_vs_single"] = _rel(C, Cs)
+        del C
+    del A, B2, Cs
+
+    m, ln, lk = sizes["ls_m"], sizes["ls_n"], sizes["ls_nrhs"]
+    A = randn((m, ln), f32, device, SEED + 86)
+    B = randn((m, lk), f32, device, SEED + 87)
+    Xd = step("gels_cholqr_dist_s", lambda: par.gels_cholqr_distributed(A, B, grid))
+    Xs = step("gels_cholqr_single_s", lambda: slate.gels_cholqr(A, B))
+    out["gels_cholqr_error"] = ls_residual(A, Xd, B)
+    out["gels_cholqr_vs_single"] = _rel(Xd, Xs)
+    del Xd, Xs, B
+    Q, R = step("tsqr_dist_s", lambda: par.tsqr_distributed(A, grid))
+    Q = par.gather(Q)
+    _, Rs = step("tsqr_single_s", lambda: slate.linalg.tsqr(A))
+    out["tsqr_error"] = _rel(torch.matmul(Q, R), A)
+    out["tsqr_vs_single"] = _rel(R.abs(), Rs.abs())
+    del Q, R, Rs, A
+
+    ng = sizes["geqrf_n"]
+    A = randn((ng, ng), f32, device, SEED + 88)
+    Q, R = step("geqrf_dist_s", lambda: par.geqrf_distributed(A, grid, nb=sizes["geqrf_nb"]))
+    Q, R = par.gather(Q), par.gather(R)
+    F = step("geqrf_single_s", lambda: slate.geqrf(A))
+    QRs = slate.unmqr("left", "n", F, F.R())
+    QRd = torch.matmul(Q, R)
+    out["geqrf_error"] = _rel(QRd, A)
+    out["geqrf_orthogonality"] = float(torch.linalg.norm(
+        torch.matmul(Q.T, Q) - torch.eye(ng, device=device)) / math.sqrt(ng))
+    out["geqrf_vs_single"] = _rel(QRd, QRs)
+    del Q, R, F, QRs, QRd, A
+
+    nm = sizes["mixed_n"]
+    S = spd(nm, torch.Generator(device=device).manual_seed(SEED + 89), device, f64)
+    B = randn((nm, k), f64, device, SEED + 90)
+    Xd, iters, via_ir = step("posv_mixed_dist_s", lambda: par.posv_mixed_distributed(
+        S, B, grid, nb=nb))
+    Xd = par.gather(Xd)
+    Xs = step("posv_mixed_single_s", lambda: slate.posv_mixed(S, B)[0])
+    out["posv_mixed_iters"] = int(iters)
+    out["posv_mixed_via_ir"] = bool(via_ir)
+    out["posv_mixed_error"] = backward_error(S, Xd, B)
+    out["posv_mixed_vs_single"] = _rel(Xd, Xs)
+    del S, B, Xd, Xs
+
+    ni = sizes["inv_n"]
+    G = randn((ni, ni), f64, device, SEED + 91)
+    I = torch.eye(ni, dtype=f64, device=device)
+
+    def getri_d():
+        LU, perm, _ = par.getrf_distributed(G, grid)
+        return par.gather(par.getri_distributed(LU, perm, grid))
+    Gd = step("getri_dist_s", getri_d)
+    Gs = step("getri_single_s", lambda: slate.getri(*slate.getrf(G.clone())[:2]))
+    out["getri_error"] = _rel(torch.matmul(G, Gd), I) / math.sqrt(ni)
+    out["getri_vs_single"] = _agree(G, Gd, Gs)
+    del G, Gd, Gs
+    P = spd(ni, torch.Generator(device=device).manual_seed(SEED + 92), device, f64)
+    Lp = torch.linalg.cholesky(P)
+
+    def full(T):
+        return torch.tril(T) + torch.tril(T, -1).mH
+    Pd = step("potri_dist_s", lambda: full(par.gather(par.potri_distributed(Lp, grid))))
+    Ps = step("potri_single_s", lambda: full(slate.potri(Lp.clone(), uplo="lower")))
+    out["potri_error"] = _rel(torch.matmul(P, Pd), I) / math.sqrt(ni)
+    out["potri_vs_single"] = _rel(Pd, Ps)
+    del P, Lp, Pd, Ps, I
+
+    nbat, nbk, nr = sizes["batch"], sizes["bucket"], sizes["batch_nrhs"]
+    a = randn((nbat, nbk, nbk), f32, device, SEED + 93)
+    b = randn((nbat, nbk, nr), f32, device, SEED + 94)
+    xd, perm, info = step("gesv_batched_dist_s", lambda: par.gesv_batched_distributed(
+        a, b, grid))
+    xd, info = par.gather(xd), par.gather(info)
+    xs, _, info_s = step("gesv_batched_single_s", lambda: serve.gesv_batched(a, b))
+    r = torch.matmul(a, xd) - b
+    out["gesv_batched_error"] = float(max(
+        torch.linalg.norm(r[i]) / (torch.linalg.norm(a[i]) * torch.linalg.norm(xd[i]))
+        for i in range(nbat)))
+    out["gesv_batched_vs_single"] = float(max(_agree(a[i], xd[i], xs[i])
+                                              for i in range(nbat)))
+    out["gesv_batched_info_equal"] = bool(torch.equal(info.cpu(), info_s.cpu()))
+    out["times"] = times
+    return out
+
+
+def check_dist_path(res: dict, sizes: dict = DIST) -> None:
+    n, f32, f64 = sizes["n"], torch.float32, torch.float64
+    g32, g64 = gate(f32, n), gate(f64, sizes["mixed_n"])
+    checks = [("posv_error", g32), ("posv_vs_single", g32),
+              ("potrf_pipelined_error", g32), ("potrf_pipelined_vs_single", g32),
+              ("gesv_error", g32), ("gesv_vs_single", 2 * g32),
+              ("gemm_allgather_vs_single", g32), ("gemm_ring_vs_single", g32),
+              ("gels_cholqr_error", 100 * gate(f32, sizes["ls_n"])),
+              ("gels_cholqr_vs_single", gate(f32, sizes["ls_n"])),
+              ("tsqr_error", gate(f32, sizes["ls_n"])),
+              ("tsqr_vs_single", gate(f32, sizes["ls_n"])),
+              ("geqrf_error", gate(f32, sizes["geqrf_n"])),
+              ("geqrf_orthogonality", gate(f32, sizes["geqrf_n"])),
+              ("geqrf_vs_single", 2 * gate(f32, sizes["geqrf_n"])),
+              ("posv_mixed_error", g64), ("posv_mixed_vs_single", g64),
+              ("getri_error", gate(f64, sizes["inv_n"])),
+              ("getri_vs_single", 2 * gate(f64, sizes["inv_n"])),
+              ("potri_error", gate(f64, sizes["inv_n"])),
+              ("potri_vs_single", gate(f64, sizes["inv_n"])),
+              ("gesv_batched_error", gate(f32, sizes["bucket"])),
+              ("gesv_batched_vs_single", 2 * gate(f32, sizes["bucket"]))]
+    for key, bound in checks:
+        require(res[key] <= bound, f"dist {key} {res[key]:.3e} > {bound:.3e}")
+    for kind in ("one", "inf", "max", "fro"):
+        require(res[f"norm_{kind}_vs_single"] <= RTOL[f32],
+                f"dist norm {kind} differs from the single-device port")
+    require(res["gesv_info"] == 0, f"gesv_distributed info {res['gesv_info']}")
+    require(res["gesv_batched_info_equal"], "batched info differs from serve.gesv_batched")
+    require(res["posv_mixed_via_ir"], "posv_mixed_distributed fell back to full precision")
+
+
+def full_dist_path() -> dict:
+    """The distributed tier on a 1x1 grid (a process group of one rank), with
+    the kernels' launch counters set to 0 just before and read just after.
+    A warm-up solve at n = 256 and one collective of each kind on each axis
+    start the process group and its communicators first."""
+    from slate_tpu_torch import parallel as par
+
+    grid = par.ProcessGrid.cached(1, 1, device="cuda")
+    w = spd(256, torch.Generator(device="cuda").manual_seed(SEED), "cuda", torch.float32)
+    par.gather(par.posv_distributed(w, w[:, :2], grid, nb=64))
+    # and one all-reduce of each kind and one all-gather on each axis, so no
+    # timed step pays for a first call
+    for axis in (par.ROW_AXIS, par.COL_AXIS, par.mesh.FLAT):
+        for op in ("sum", "max"):
+            par.axis_allreduce(w[0], grid, axis, op)
+        par.axis_allgather(w[0], grid, axis)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in cn.LAUNCHES:
+        cn.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    res = dist_path("cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(cn.LAUNCHES)
+    say("dist_card", nvidia_smi())
+    for key, v in res.items():
+        if key == "times":
+            continue
+        say(f"dist_{key}", json.dumps(v) if isinstance(v, dict) else v)
+    t = res["times"]
+    for name in sorted({k.rsplit("_", 2)[0] for k in t
+                        if k.endswith("_dist_s") and not k.startswith("gemm_")}):
+        say(f"dist_{name}_s", t[f"{name}_dist_s"])
+        say(f"dist_{name}_single_s", t[f"{name}_single_s"])
+        say(f"dist_{name}_over_single", t[f"{name}_dist_s"] / t[f"{name}_single_s"])
+    for name in ("gemm_allgather", "gemm_ring"):
+        say(f"dist_{name}_s", t[f"{name}_dist_s"])
+        say(f"dist_{name}_over_single", t[f"{name}_dist_s"] / t["gemm_single_s"])
+    say("dist_wall_s", wall)
+    say("dist_peak_memory_gib", torch.cuda.max_memory_allocated() / 2**30)
+    say("dist_launches", json.dumps(launches))
+    check_dist_path(res)
+    for name in ("col_reduce", "row_sums"):
+        require(sum(res[f"norm_{kind}_launches"][name]
+                    for kind in ("one", "inf", "max", "fro")) > 0,
+                f"norm_distributed did not launch {name}")
+    torch.cuda.synchronize()
+    par.mesh.destroy()                  # the world of one ends with the phase
+    return launches
+
+
 # the serve chaos check's flight-recorder dump (git ignores this file)
 FLIGHT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "flight_records.json")
@@ -2005,9 +2320,11 @@ def main() -> int:
     stats = kernel_phase()
     times = timing_phase()
     small_checks()
+    cn.LAUNCHED.clear()
     paths = {"posv": full_path(), "general": full_general_path(),
              "serve": full_serve_path(), "eig": full_eig_path(),
-             "tester": full_tester_path()}
+             "tester": full_tester_path(), "dist": full_dist_path()}
+    path_shapes_phase(set(cn.LAUNCHED), stats)
     kernels = []
     for name in ("col_reduce", "row_sums"):
         t = times[name]
@@ -2016,7 +2333,7 @@ def main() -> int:
             "replaces": REPLACES[name],
             # the serve and eig paths launch neither kernel (their counts,
             # 0, are kept in launches_by_path); the tester's norm and
-            # gecondest rows do
+            # gecondest rows and the distributed norms do
             "launches": sum(p[name] for p in paths.values()),
             "launches_by_path": {path: p[name] for path, p in paths.items()},
             "max_abs_err": stats[name]["max_abs_err"],

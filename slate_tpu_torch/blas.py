@@ -10,8 +10,9 @@ output wrapper *and* returns the new tensor, so both the reference's in-place st
 and the functional style work.
 
 Method dispatch: on one device every stationary variant is the same library call
-(stationarity is a communication concept); the distributed variants and the SUMMA
-pipeline arrive with the distributed tier (ROADMAP.md queue A item 15).
+(stationarity is a communication concept).  Wrappers bound to a process grid of
+more than one rank run the distributed forms (:mod:`slate_tpu_torch.parallel`):
+SUMMA for gemm, the stationary-A/B triangular solves, the distributed norms.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from .core.exceptions import SlateError
 from .core.matrix import (BaseBandMatrix, BaseMatrix, BaseTrapezoidMatrix,
                           HermitianBandMatrix, HermitianMatrix, SymmetricMatrix,
                           as_array, distribution_grid, write_back)
-from .core.types import Diag, MethodGemm, MethodTrsm, NormScope, Options, Uplo
+from .core.types import Diag, MethodGemm, MethodTrsm, Norm, NormScope, Options, Side, Uplo
 from .ops import blas3, elementwise, norms as norm_ops
 
 
@@ -68,8 +69,11 @@ def select_algo_gemm(A, B, C, opts: Options) -> MethodGemm:
 def gemm(alpha, A, B, beta, C, opts=None):
     """C = alpha op(A) op(B) + beta C (src/gemm.cc:87)."""
     opts = Options.make(opts)
-    distribution_grid(A, B, C)
+    grid = distribution_grid(A, B, C)
     if opts.f64_emulation:
+        if grid is not None:
+            raise SlateError("f64_emulation gemm is single-device; detach "
+                             "the grid or pre-gather the operands")
         # double-precision-class result from exact slices and double-f32
         # accumulation (ops/f64emu.py); the whole alpha/beta combination
         # happens inside the compensated accumulator, so residual-style calls
@@ -78,9 +82,14 @@ def gemm(alpha, A, B, beta, C, opts=None):
 
         a, b, c = _operands(A, B, C)
         return write_back(C, gemm_f64emu(a, b, alpha=alpha, beta=beta, C=c))
-    if select_algo_gemm(A, B, C, opts) == MethodGemm.SUMMA:
-        raise SlateError("MethodGemm.SUMMA requires the distributed tier, not "
-                         "ported yet (ROADMAP.md queue A item 15)")
+    if grid is not None or select_algo_gemm(A, B, C, opts) == MethodGemm.SUMMA:
+        # wrappers bound to a >1-rank grid run the SUMMA pipeline over it
+        # (scalapack_gemm.cc builds on the BLACS grid the same way); an
+        # explicit SUMMA without one runs over the default grid
+        from .parallel import gather, summa
+
+        out = summa.summa_gemm(alpha, A, B, beta, C, opts, grid=grid)
+        return write_back(C, out if grid is not None else gather(out))
     a, b, c = _operands(A, B, C)
     return write_back(C, blas3.gemm(alpha, a, b, beta, c))
 
@@ -157,28 +166,68 @@ def select_algo_trsm(A, B, opts: Options) -> MethodTrsm:
     return MethodTrsm.A if B_nt < 2 else MethodTrsm.B
 
 
-def _trsm_dispatch(side, alpha, A, B, uplo, diag):
-    distribution_grid(A, B)
-    a, b = _operands(A, B)
-    return write_back(B, blas3.trsm(side, _uplo_of(A, uplo), _diag_of(A, diag),
-                                    alpha, a, b))
+def _trsm_dispatch(method, side, alpha, A, B, uplo, diag):
+    grid = distribution_grid(A, B)
+    u, d = _uplo_of(A, uplo), _diag_of(A, diag)
+    if grid is None:
+        # one device: stationarity is a communication concept; both methods
+        # are the same blocked library triangular solve
+        a, b = _operands(A, B)
+        return write_back(B, blas3.trsm(side, u, d, alpha, a, b))
+    return write_back(B, _trsm_grid(method, side, alpha, A, B, u, d, grid))
+
+
+def _trsm_grid(method, side, alpha, A, B, u, d, grid):
+    """The distributed triangular solve of grid-bound operands, each taken in
+    its block layout (a right-side solve on block-exchanged transposes)."""
+    from .parallel.distribute import (global_index, local_block, transpose_local,
+                                      wrap)
+    from .parallel.solvers import trsmA_distributed, trsm_distributed
+
+    a = A.dist_array() if isinstance(A, BaseMatrix) else A
+    b = B.dist_array() if isinstance(B, BaseMatrix) else B
+
+    def transposed(x):
+        m, n = x.shape[-2:]
+        return wrap(transpose_local(local_block(x, grid), grid, m, n), grid, (n, m))
+
+    right = Side.from_string(side) == Side.Right
+    if right:
+        # X op(A) = alpha B  <=>  op(A)^T X^T = alpha B^T: the left sweeps on
+        # transposed operands (work_trsmA.cc:79-89 does the same)
+        a, b = transposed(a), transposed(b)
+        u = Uplo.Upper if u == Uplo.Lower else Uplo.Lower
+    lower = u == Uplo.Lower
+    rhs = wrap(alpha * local_block(b, grid), grid, b.shape)
+    if method == MethodTrsm.A:
+        out = trsmA_distributed(a, rhs, grid, lower=lower, unit_diag=(d == Diag.Unit))
+    else:
+        if d == Diag.Unit:
+            # the stationary-B sweep reads the diagonal: make the implicit
+            # unit diagonal explicit
+            n = a.shape[-1]
+            loc = local_block(a, grid)
+            rows, cols = global_index(grid, n, n, device=loc.device)
+            a = wrap(torch.where(rows == cols, torch.ones_like(loc), loc), grid, (n, n))
+        out = trsm_distributed(a, rhs, grid, lower=lower)
+    return transposed(out) if right else out
 
 
 def trsm(side, alpha, A, B, opts=None, uplo=None, diag=None):
     """Solve op(T) X = alpha B in place of B (src/trsm.cc; one blocked library
-    triangular solve on one device)."""
-    select_algo_trsm(A, B, Options.make(opts))
-    return _trsm_dispatch(side, alpha, A, B, uplo, diag)
+    triangular solve on one device, select_algo's variant on a grid)."""
+    method = select_algo_trsm(A, B, Options.make(opts))
+    return _trsm_dispatch(method, side, alpha, A, B, uplo, diag)
 
 
 def trsmA(side, alpha, A, B, opts=None, uplo=None, diag=None):
     """Stationary-A triangular solve (src/trsmA.cc)."""
-    return _trsm_dispatch(side, alpha, A, B, uplo, diag)
+    return _trsm_dispatch(MethodTrsm.A, side, alpha, A, B, uplo, diag)
 
 
 def trsmB(side, alpha, A, B, opts=None, uplo=None, diag=None):
     """Stationary-B triangular solve (src/trsmB.cc)."""
-    return _trsm_dispatch(side, alpha, A, B, uplo, diag)
+    return _trsm_dispatch(MethodTrsm.B, side, alpha, A, B, uplo, diag)
 
 
 # ---------------------------------------------------------------------------
@@ -251,9 +300,33 @@ def norm(norm_kind, A, opts=None, scope=NormScope.Matrix, uplo=None, diag=None):
 
     General -> genorm, symmetric/Hermitian -> synorm/henorm, triangular -> trnorm,
     band -> gbnorm/hbnorm (internal_*norm.cc family).  General and triangular
-    norms of real f32/f64 data on the card run the CUDA reductions.
+    norms of real f32/f64 data on the card run the CUDA reductions.  A wrapper
+    bound to a >1-rank grid takes the distributed reduction (per-shard
+    kernels, then an all-reduce); band and unit-diagonal triangles keep the
+    local masked reductions.
     """
-    distribution_grid(A)
+    grid = distribution_grid(A)
+    kind = Norm.from_string(norm_kind)
+    the_scope = NormScope.from_string(scope)
+    if grid is not None and kind in (Norm.Max, Norm.One, Norm.Inf, Norm.Fro):
+        from .parallel import col_norms_distributed, norm_distributed
+
+        general = not isinstance(A, (BaseTrapezoidMatrix, BaseBandMatrix))
+        if the_scope == NormScope.Columns and general and kind == Norm.Max:
+            return col_norms_distributed(A.dist_array(), grid)
+        if the_scope == NormScope.Matrix:
+            if isinstance(A, (HermitianMatrix, SymmetricMatrix)):
+                from .parallel.distribute import full_hermitian
+
+                return norm_distributed(kind, full_hermitian(
+                    A.dist_array(), grid, A.uplo == Uplo.Lower,
+                    herm=isinstance(A, HermitianMatrix)), grid)
+            if (isinstance(A, BaseTrapezoidMatrix)
+                    and _diag_of(A, diag) != Diag.Unit):
+                return norm_distributed(kind, A.dist_array(), grid,
+                                        uplo=str(A.uplo.value))
+            if general:
+                return norm_distributed(kind, A.dist_array(), grid)
     (a,) = _operands(A)
     if isinstance(A, HermitianMatrix):
         return norm_ops.henorm(norm_kind, A.uplo, a)

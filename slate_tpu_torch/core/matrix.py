@@ -15,8 +15,12 @@ Re-design of the reference's matrix hierarchy (``include/slate/BaseMatrix.hh``,
 * Entry points put new data on ``cuda`` unless the caller passes ``device=``;
   a tensor handed in keeps its device.  Without CUDA and without a ``device``
   they raise instead of falling back to the CPU.
-* Distribution over a >1-device process grid is not ported yet (ROADMAP.md queue A
-  item 15): a wrapper bound to such a grid raises.
+* A wrapper bound to a process grid of more than one rank
+  (:class:`slate_tpu_torch.parallel.ProcessGrid`) holds its storage as a
+  ``DTensor`` in the grid's block layout, placed at construction as the
+  reference installs the distribution in its constructors
+  (MatrixStorage.hh:494-511); the drivers that have a distributed form run it
+  (:func:`distribution_grid`), and reading ``.array`` gathers the whole matrix.
 """
 
 from __future__ import annotations
@@ -30,8 +34,8 @@ from . import grid as grid_funcs
 from .exceptions import SlateError, slate_assert
 from .types import Diag, GridOrder, Op, TileKind, Uplo
 
-_NOT_PORTED_GRID = ("distributed execution over a >1-device process grid is not "
-                    "ported yet (ROADMAP.md queue A item 15)")
+_NOT_PORTED_GRID = ("this driver's distributed form over a >1-rank process grid is "
+                    "not ported yet (ROADMAP.md queue A item 15b)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -65,7 +69,14 @@ def to_tensor(a, device=None, dtype=None) -> torch.Tensor:
 
 
 def _like(value, ref: torch.Tensor) -> torch.Tensor:
-    """``value`` as a tensor on ``ref``'s device (writes into shared storage)."""
+    """``value`` as a tensor on ``ref``'s device (writes into shared storage);
+    a DTensor stays one, and is placed by the storage."""
+    from ..parallel.distribute import is_dist
+
+    if is_dist(value):
+        return value
+    if is_dist(ref):
+        ref = ref.to_local()
     if isinstance(value, torch.Tensor):
         return value.to(ref.device)
     return torch.as_tensor(np.asarray(value), device=ref.device)
@@ -127,16 +138,15 @@ class MatrixStorage:
 
     __slots__ = ("array", "mb", "nb", "tile_rank", "grid", "kind", "p", "q",
                  "order", "default_rank_map", "mb_sizes", "nb_sizes",
-                 "mb_offs", "nb_offs", "owned", "__weakref__")
+                 "mb_offs", "nb_offs", "owned", "_whole", "__weakref__")
 
     def __init__(self, array: torch.Tensor, mb: int, nb: int,
                  p: int = 1, q: int = 1, order: GridOrder = GridOrder.Col,
                  grid: Any = None, kind: TileKind = TileKind.SlateOwned,
                  tile_rank: Optional[grid_funcs.TileRankFunc] = None,
                  tile_mb=None, tile_nb=None):
-        if grid is not None and getattr(grid, "size", 1) > 1:
-            raise SlateError(_NOT_PORTED_GRID)
         self.array = array
+        self._whole = None
         self.owned = kind != TileKind.UserOwned
         self.mb_sizes = _expand_tile_sizes(array.shape[-2], tile_mb)
         self.nb_sizes = _expand_tile_sizes(array.shape[-1], tile_nb)
@@ -151,6 +161,39 @@ class MatrixStorage:
         self.tile_rank = tile_rank or grid_funcs.process_2d_grid(self.order, self.p, self.q)
         self.grid = grid
         self.kind = kind
+        self.place_on_grid()
+
+    def on_grid(self) -> bool:
+        """Whether this storage lives on a process grid of more than one rank
+        that this rank belongs to."""
+        g = self.grid
+        return (g is not None and getattr(g, "size", 1) > 1
+                and getattr(g, "rank", -1) >= 0)
+
+    def place_on_grid(self) -> None:
+        """(Re)place the backing tensor onto the bound grid's block layout —
+        each rank keeps its shard of a tensor that is the same on every rank
+        (no data moves); a DTensor in another layout is gathered first."""
+        self._whole = None
+        if not self.on_grid() or self.array.ndim != 2:
+            return
+        from ..parallel.distribute import BLOCK, layout_of, local_block, wrap
+
+        if layout_of(self.array) == BLOCK and self.array.device_mesh is self.grid.mesh:
+            return
+        self.array = wrap(local_block(self.array, self.grid), self.grid,
+                          tuple(self.array.shape))
+
+    def whole(self) -> torch.Tensor:
+        """The backing tensor whole on this rank: itself off a grid, else the
+        gathered DTensor (cached until the next write)."""
+        if not self.on_grid():
+            return self.array
+        if self._whole is None:
+            from ..parallel.distribute import gather
+
+            self._whole = gather(self.array)
+        return self._whole
 
     @property
     def m(self) -> int:
@@ -170,6 +213,13 @@ class MatrixStorage:
         if row0 == 0 and col0 == 0 and tuple(block.shape) == tuple(self.array.shape):
             self.array = block
             self.owned = False
+            self.place_on_grid()
+            return
+        if self.on_grid():
+            whole = self.whole().clone()
+            whole[..., row0:row0 + block.shape[-2], col0:col0 + block.shape[-1]] = block
+            self.array = whole
+            self.place_on_grid()
             return
         if not self.owned:
             self.array = self.array.clone()
@@ -309,9 +359,11 @@ class BaseMatrix:
         return st.tile_rank(si, sj)
 
     def tileIsLocal(self, i: int, j: int) -> bool:
-        """Whether tile (i, j) is owned by this process's rank (rank 0: the port
-        runs in one process until the distributed tier is ported)."""
-        return self.tileRank(i, j) == 0
+        """Whether tile (i, j) is owned by this process's rank on the grid
+        (BaseMatrix::tileIsLocal).  Without a grid everything is local."""
+        g = self.storage.grid
+        rank = 0 if g is None else getattr(g, "rank", 0)
+        return self.tileRank(i, j) == rank
 
     @property
     def dtype(self) -> torch.dtype:
@@ -346,12 +398,38 @@ class BaseMatrix:
     def array(self) -> torch.Tensor:
         """The logical view (op applied) — a view of shared storage for
         NoTrans/Trans, a conjugated copy for ConjTrans of complex data."""
-        a = self.storage.array[..., self.ioffset:self.ioffset + self._m,
-                               self.joffset:self.joffset + self._n]
+        a = self.storage.whole()[..., self.ioffset:self.ioffset + self._m,
+                                 self.joffset:self.joffset + self._n]
         return _apply_op(a, self.op)
+
+    def _whole_on_grid(self) -> bool:
+        """Whether this view is its whole storage and the storage is on a grid."""
+        st = self.storage
+        return (st.on_grid() and self.ioffset == 0 and self.joffset == 0
+                and (self._m, self._n) == (st.m, st.n))
+
+    def dist_array(self):
+        """The operand a distributed driver takes: for a whole view of
+        grid-bound storage, the logical matrix in the block layout (the storage
+        DTensor itself, or for a transposed view its transpose by one block
+        exchange); else :attr:`array`."""
+        st = self.storage
+        if not self._whole_on_grid():
+            return self.array
+        if self.op == Op.NoTrans:
+            return st.array
+        from ..parallel.distribute import transpose_local, wrap
+
+        return wrap(transpose_local(st.array.to_local(), st.grid, st.m, st.n,
+                                    conj=self.op == Op.ConjTrans),
+                    st.grid, (st.n, st.m))
 
     def set_array(self, value) -> None:
         """Write the logical view back to shared storage."""
+        from ..parallel.distribute import gather, is_dist
+
+        if is_dist(value) and not (self._whole_on_grid() and self.op == Op.NoTrans):
+            value = gather(value)   # only a whole grid-bound view takes a DTensor
         value = _like(value, self.storage.array)
         slate_assert(tuple(value.shape[-2:]) == (self.m, self.n),
                      f"shape mismatch: view {self.shape}, value {tuple(value.shape)}")
@@ -373,7 +451,7 @@ class BaseMatrix:
     def tile(self, i: int, j: int) -> torch.Tensor:
         """Slices storage directly and applies op to the single tile."""
         io, jo, mb_s, nb_s = self._tile_storage_coords(i, j)
-        return _apply_op(self.storage.array[..., io:io + mb_s, jo:jo + nb_s], self.op)
+        return _apply_op(self.storage.whole()[..., io:io + mb_s, jo:jo + nb_s], self.op)
 
     def set_tile(self, i: int, j: int, value) -> None:
         io, jo, mb_s, nb_s = self._tile_storage_coords(i, j)
@@ -670,22 +748,28 @@ class HermitianBandMatrix(BaseBandMatrix):
 
 
 def distribution_grid(*operands):
-    """The shared process grid (size > 1) attached to any wrapper operand, or None.
+    """The shared ProcessGrid (size > 1) attached to any wrapper operand, or None.
 
-    Storage refuses such grids until the distributed tier is ported, so this
-    returns None for every wrapper the port can build; it stays the one place
-    drivers ask, as in the JAX package."""
+    Drivers consult this to route to the ``parallel`` implementations — the
+    reference consuming ``tileRank``/``tileDevice`` installed at matrix
+    construction (MatrixStorage.hh:494-511).  Mixing wrappers bound to
+    different grids is an error, like mixing BLACS contexts."""
+    g = None
     for op in operands:
         if isinstance(op, BaseMatrix):
             og = op.storage.grid
             if og is not None and getattr(og, "size", 1) > 1:
-                raise SlateError(_NOT_PORTED_GRID)
-    return None
+                if g is not None and og is not g:
+                    raise SlateError(
+                        "operands are distributed on different process grids")
+                g = og
+    return g
 
 
 def refuse_grid(grid) -> None:
-    """Raise for a process grid of more than one device handed to a driver
-    directly (the ``grid=`` argument of the JAX package's stage functions)."""
+    """Raise for a process grid of more than one rank reaching a driver whose
+    distributed form is not ported yet (item 15b: the distributed eigenvalue,
+    SVD, band and indefinite drivers)."""
     if grid is not None and getattr(grid, "size", 1) > 1:
         raise SlateError(_NOT_PORTED_GRID)
 
@@ -695,6 +779,10 @@ def as_array(A, device=None) -> torch.Tensor:
     tensor (raw non-tensor data goes onto ``device``, default ``cuda``)."""
     if isinstance(A, BaseMatrix):
         return A.array
+    if isinstance(A, torch.Tensor) and type(A) is not torch.Tensor:
+        from ..parallel.distribute import gather
+
+        A = gather(A)           # a distributed result handed to a local driver
     return to_tensor(A, device)
 
 
@@ -711,20 +799,31 @@ _WRAPPERS = {c.__name__: c for c in (
     BandMatrix, TriangularBandMatrix, HermitianBandMatrix)}
 
 
-def from_reference_state(d: dict, device=None) -> BaseMatrix:
+def from_reference_state(d: dict, device=None, grid=None) -> BaseMatrix:
     """Rebuild the counterpart wrapper of a JAX-package wrapper from a plain dict.
 
     Keys: ``class`` (wrapper class name), ``array`` (the untransposed storage
-    array, numpy), ``mb``/``nb``, and as the class needs them ``uplo``, ``diag``,
-    ``op``, ``kl``/``ku`` (band), ``kd`` (triangular/Hermitian band) and the view
-    window ``ioffset``/``joffset``/``m``/``n`` in storage coordinates (default:
-    the whole storage).  Options carry across with ``Options.make(dict)``."""
+    array, numpy — a grid-bound wrapper's global array), ``mb``/``nb``, and as
+    the class needs them ``uplo``, ``diag``, ``op``, ``kl``/``ku`` (band),
+    ``kd`` (triangular/Hermitian band), the view window
+    ``ioffset``/``joffset``/``m``/``n`` in storage coordinates (default: the
+    whole storage) and ``gridinfo`` (order, p, q).  ``grid`` — a
+    :class:`~slate_tpu_torch.parallel.ProcessGrid` or ``(p, q, order)`` —
+    binds the wrapper to that grid, every rank keeping its shard.  Options
+    carry across with ``Options.make(dict)``."""
     cls = _WRAPPERS.get(d["class"])
     if cls is None:
         raise SlateError(f"no wrapper class named {d['class']!r}")
     a = to_tensor(d["array"], device)
     nb = int(d.get("nb", 256))
-    storage = MatrixStorage(a, int(d.get("mb") or nb), nb, kind=TileKind.UserOwned)
+    if grid is not None and not hasattr(grid, "mesh"):
+        from ..parallel.mesh import ProcessGrid
+
+        grid = ProcessGrid.cached(grid[0], grid[1], device=a.device,
+                                  order=grid[2] if len(grid) > 2 else GridOrder.Col)
+    order, p, q = d.get("gridinfo", (GridOrder.Col, 1, 1))
+    storage = MatrixStorage(a, int(d.get("mb") or nb), nb, int(p), int(q), order,
+                            grid, kind=TileKind.UserOwned)
     if cls is Matrix:
         w = Matrix(0, 0, nb, _storage=storage)
     elif issubclass(cls, BaseTrapezoidMatrix):

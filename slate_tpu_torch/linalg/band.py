@@ -23,7 +23,8 @@ from typing import NamedTuple
 import torch
 
 from ..core.exceptions import SlateError, slate_assert
-from ..core.matrix import BaseBandMatrix, as_array, distribution_grid, write_back
+from ..core.matrix import (BaseBandMatrix, as_array, distribution_grid, refuse_grid,
+                           write_back)
 from ..core.types import Diag, Options, Side, Uplo
 from ..robust import first_bad_index
 from ..utils.trace import trace_block
@@ -110,7 +111,6 @@ def gbmm(alpha, A, B, beta, C, opts=None, kl=None, ku=None):
     op(A) comes through transposed BandMatrix views; raw tensors are taken
     as they are."""
     opts = Options.make(opts)
-    distribution_grid(A, B, C)
     a, kl, ku = _band_meta(A, kl, ku)
     b, c = as_array(B, device=a.device), as_array(C, device=a.device)
     m, k = a.shape[-2:]
@@ -198,7 +198,6 @@ def tbsm(side, alpha, A, B, opts=None, uplo=None, diag=None, trans=False,
     opts = Options.make(opts)
     if Side.from_string(side) != Side.Left:
         raise SlateError("tbsm: only side='left' implemented (matches tests usage)")
-    distribution_grid(A, B)
     if isinstance(A, BaseBandMatrix):
         a, u = A.array, A.uplo
         kd_v = getattr(A, "kd", max(A.kl, A.ku))
@@ -281,7 +280,6 @@ def pbtrf(A, opts=None, uplo=None, kd=None):
     """Band Cholesky A = L L^H (src/pbtrf.cc), lower band form in and out.
     Returns (L_band, info)."""
     opts = Options.make(opts)
-    distribution_grid(A)
     if isinstance(A, BaseBandMatrix):
         a, u, kd_v = A.array, A.uplo, getattr(A, "kd", max(A.kl, A.ku))
     else:
@@ -317,7 +315,7 @@ def pbtrs(L, B, opts=None, kd=None):
 def pbsv(A, B, opts=None, uplo=None, kd=None):
     """Solve an SPD band system (src/pbsv.cc): pbtrf + pbtrs.
     Returns (X, info)."""
-    distribution_grid(A, B)
+    refuse_grid(distribution_grid(A, B))
     slate_assert(isinstance(A, BaseBandMatrix) or kd is not None,
                  "pbsv on a raw array needs kd=")
     kd_v = (getattr(A, "kd", max(A.kl, A.ku)) if isinstance(A, BaseBandMatrix)
@@ -395,7 +393,6 @@ def _gbtrs_forward(lu, perms, b, kl, nb):
 def gbtrf(A, opts=None, kl=None, ku=None):
     """Band LU with partial pivoting (src/gbtrf.cc).  Returns (BandLU, info)."""
     opts = Options.make(opts)
-    distribution_grid(A)
     a, kl, ku = _band_meta(A, kl, ku)
     n = a.shape[-1]
     slate_assert(a.shape[-2] == n, "gbtrf expects square")
@@ -424,6 +421,6 @@ def gbtrs(fac: BandLU, B, opts=None):
 def gbsv(A, B, opts=None, kl=None, ku=None):
     """Solve a general band system (src/gbsv.cc): gbtrf + gbtrs.
     Returns (X, info)."""
-    distribution_grid(A, B)
+    refuse_grid(distribution_grid(A, B))
     fac, info = gbtrf(A, opts, kl, ku)
     return gbtrs(fac, B, opts), info

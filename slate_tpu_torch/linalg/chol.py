@@ -195,13 +195,18 @@ def potrf(A, opts=None, uplo=None):
     opts = Options.make(opts)
     the_uplo = _default_uplo(A, uplo)
     half = isinstance(A, (HermitianMatrix, SymmetricMatrix))
+    grid = distribution_grid(A)
+    if grid is not None:
+        # the wrapper carries a >1-rank process grid: run the distributed
+        # factorization over it (reference: the distribution installed at
+        # construction is consumed by every driver)
+        return _potrf_grid(A, grid, the_uplo, half, opts)
     Af = _full_spd(A, None if half else the_uplo)
     Af = inject("potrf", Af)
     n = Af.shape[-1]
     target = opts.target
     if target == Target.Auto:
         target = Target.XLA  # single fused factorization
-    distribution_grid(A)
     with trace_block("potrf", n=n, nb=opts.block_size, target=str(target)):
         if target == Target.XLA:
             L = torch.tril(_cholesky(Af))
@@ -225,10 +230,66 @@ def potrf(A, opts=None, uplo=None):
     return out, info
 
 
+def _potrf_grid(A, grid, the_uplo, half, opts):
+    """potrf of a wrapper bound to a >1-rank grid, every step in the block
+    layout: the full Hermitian matrix is assembled shard by shard, the factor
+    comes back as a DTensor and is written into the stored triangle shard by
+    shard, and ``info`` reads the diagonal with one all-reduce."""
+    from ..parallel import potrf_distributed
+    from ..parallel.distribute import (diagonal, full_hermitian, gather,
+                                       global_index, is_dist, local_block,
+                                       transpose_local, wrap)
+
+    stored_lower = (A.uplo if half else the_uplo) == Uplo.Lower
+    Af = full_hermitian(A.dist_array(), grid, stored_lower,
+                        herm=not isinstance(A, SymmetricMatrix))
+    Af = inject("potrf", Af)
+    n = Af.shape[-1]
+    with trace_block("potrf", n=n, nb=opts.block_size, target="distributed"):
+        L = potrf_distributed(Af, grid, nb=min(opts.block_size, n),
+                              lookahead=opts.lookahead)
+        if not is_dist(L):          # the lookahead pipeline's replicated factor
+            L = wrap(local_block(L, grid), grid, (n, n))
+    d = diagonal(L, grid).real
+    info = first_bad_index(torch.isnan(d) | (d <= 0))
+    if opts.exact_info and int(info) != 0:
+        info = torch.tensor(_host_chol_info(gather(Af)), dtype=torch.int32,
+                            device=d.device)
+    lower = the_uplo == Uplo.Lower
+    out = L if lower else wrap(transpose_local(L.to_local(), grid, n, n, conj=True),
+                               grid, (n, n))
+    # store only into the stored triangle, leave the rest untouched
+    stored = local_block(A.dist_array(), grid)
+    rows, cols = global_index(grid, n, n, device=stored.device)
+    mask = rows >= cols if lower else rows <= cols
+    write_back(A, wrap(torch.where(mask, out.to_local(), stored), grid, (n, n)))
+    return out, info
+
+
 def _solve_chol(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """x with L L^H x = b (L lower): the two triangular sweeps."""
     y = torch.linalg.solve_triangular(L, b, upper=False)
     return torch.linalg.solve_triangular(L.mH, y, upper=True)
+
+
+def _potrs_grid(A, B, grid, lower: bool):
+    """The two triangular sweeps of potrs on a factor bound to a >1-rank
+    grid (work::trsm, stationary B): X comes back in the block layout."""
+    from ..parallel import trsm_distributed
+    from ..parallel.distribute import global_index, local_block, transpose_local, wrap
+
+    F = local_block(A.dist_array(), grid)
+    n = A.n
+    rows, cols = global_index(grid, n, n, device=F.device)
+    zero = torch.zeros((), dtype=F.dtype, device=F.device)
+    if lower:
+        L = torch.where(rows >= cols, F, zero)
+    else:
+        L = transpose_local(torch.where(rows <= cols, F, zero), grid, n, n, conj=True)
+    L = wrap(L, grid, (n, n))
+    b = B.dist_array() if isinstance(B, BaseMatrix) else B
+    Y = trsm_distributed(L, b, grid, lower=True, conj_trans=False)
+    return trsm_distributed(L, Y, grid, lower=True, conj_trans=True)
 
 
 def posv_core(a, b):
@@ -243,6 +304,9 @@ def posv_core(a, b):
 def potrs(A, B, opts=None, uplo=None):
     """Solve A X = B given the Cholesky factor (src/potrs.cc: two work::trsm calls)."""
     the_uplo = _default_uplo(A, uplo)
+    grid = distribution_grid(A)
+    if grid is not None:
+        return write_back(B, _potrs_grid(A, B, grid, the_uplo == Uplo.Lower))
     F = as_array(A)
     L = torch.tril(F) if the_uplo == Uplo.Lower else torch.triu(F).mH
     b = as_array(B, device=F.device)
@@ -263,7 +327,7 @@ def posv(A, B, opts=None, uplo=None):
               uplo=_default_uplo(A, uplo))
     if opts.solve_report:
         report = SolveReport(routine="posv", info=int(info),
-                             precision_used=_dtype_name(as_array(L).dtype),
+                             precision_used=_dtype_name(L.dtype),
                              fallback_chain=("cholesky",)).finalize()
         report.recovered = report.info == 0
         return X, info, report

@@ -38,7 +38,7 @@ import torch
 
 from ..core.exceptions import NumericalError, SlateError, slate_assert
 from ..core.matrix import (HermitianMatrix, SymmetricMatrix, as_array,
-                           distribution_grid, write_back)
+                           distribution_grid, refuse_grid, write_back)
 from ..core.types import MethodEig, Op, Options, Side, Uplo
 from ..obs import instrument
 from ..robust import inject
@@ -108,7 +108,7 @@ def heev(A, opts=None, uplo=None, want_vectors: bool = True,
     (:class:`~..utils.trace.Timers`)."""
     opts = Options.make(opts)
     timers = Timers()
-    distribution_grid(A)
+    refuse_grid(distribution_grid(A))
     slate_assert(not chase_distributed,
                  "chase_distributed requires a grid-bound wrapper, and "
                  "distributed execution is not ported")
@@ -167,7 +167,7 @@ def heev_range(A, opts=None, uplo=None, *, il: int = 0,
     accumulation (the (n, n) Q2 is never formed).  Returns ``(lam, Z)`` with
     lam (k,) ascending, Z (n, k) or None."""
     opts = Options.make(opts)
-    distribution_grid(A)
+    refuse_grid(distribution_grid(A))
     a = _full_herm(A, uplo)
     n = a.shape[-1]
     if iu is None:
@@ -205,7 +205,7 @@ def eig_count(A, vl, vu, opts=None, uplo=None):
     int32 scalar tensor.  The chase is the default of :func:`hb2st`
     (pipelined on a CUDA tensor, sequential elsewhere)."""
     opts = Options.make(opts)
-    distribution_grid(A)
+    refuse_grid(distribution_grid(A))
     a = _full_herm(A, uplo)
     n = a.shape[-1]
     if n < 8:
@@ -260,7 +260,6 @@ def hegv(itype: int, A, B, opts=None, uplo=None, want_vectors: bool = True):
     """Generalized Hermitian eigensolve A x = lambda B x (src/hegv.cc:
     potrf(B) -> hegst -> heev -> back-transform)."""
     opts = Options.make(opts)
-    distribution_grid(A, B)
     return _hegv_pipeline(
         itype, A, B, opts, uplo, want_vectors,
         lambda C: heev(C, opts, uplo="lower", want_vectors=want_vectors), "hegv")
@@ -272,7 +271,6 @@ def hegv_range(itype: int, A, B, opts=None, uplo=None, *, il: int = 0,
     (LAPACK hegvx range='I'): hegv's reduction with ``heev_range`` as the
     standard stage."""
     opts = Options.make(opts)
-    distribution_grid(A, B)
     return _hegv_pipeline(
         itype, A, B, opts, uplo, want_vectors,
         lambda C: heev_range(C, opts, uplo="lower", il=il, iu=iu,

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.matrix import as_array, distribution_grid, write_back
+from ..core.matrix import as_array, distribution_grid, refuse_grid, write_back
 from ..core.types import Options
 from ..robust import SolveReport, inject
 from ..utils.trace import trace_block
@@ -109,7 +109,6 @@ def hetrf(A, opts=None, uplo=None):
     """Aasen factorization P A P^H = L T L^H with band T (src/hetrf.cc).
     Returns (HermitianFactors, info)."""
     opts = Options.make(opts)
-    distribution_grid(A)
     a = inject("hetrf", _full_herm(A, uplo))
     n = a.shape[-1]
     nb = min(opts.block_size, n)
@@ -142,7 +141,7 @@ def hesv(A, B, opts=None, uplo=None):
     Returns (X, info); with ``Options(solve_report=True)``,
     (X, info, SolveReport)."""
     opts_ = Options.make(opts)
-    distribution_grid(A, B)
+    refuse_grid(distribution_grid(A, B))
     fac, info = hetrf(A, opts, uplo)
     x = hetrs(fac, B, opts)
     if opts_.solve_report:

@@ -324,7 +324,17 @@ def getrf(A, opts=None):
     if method != MethodLU.PartialPiv:
         raise SlateError(f"unsupported MethodLU {method}")
 
-    distribution_grid(A)
+    grid = distribution_grid(A)
+    if grid is not None:
+        # wrapper bound to a >1-rank grid: tournament-pivoted distributed LU
+        # (the grid form of getrf_tntpiv; getrf.cc consumes the construction-
+        # time distribution the same way); Options.lu_panel reaches the panel
+        from ..parallel import getrf_distributed
+
+        lu_, perm, info = getrf_distributed(inject("getrf", A.dist_array()), grid,
+                                            nb=opts.block_size,
+                                            lu_panel=opts.lu_panel)
+        return write_back(A, lu_), perm, info
     a = inject("getrf", as_array(A))
     m, n = a.shape[-2:]
     target = opts.target
@@ -536,12 +546,19 @@ def getrs(LU, perm, B, opts=None, trans=False):
     ``trans``: False/'n' solves A X = B; True/'t' solves A^T X = B; 'c' solves
     A^H X = B (the LAPACK trans codes).  A vector B gives a vector X, as the
     JAX package's triangular solves do."""
+    code = _trans_code(trans)
+    grid = distribution_grid(LU)
+    if grid is not None and code == "n" and perm is not None:
+        # a factor bound to a >1-rank grid: the two sweeps on its block layout
+        from ..parallel import getrs_distributed
+
+        b = B.dist_array() if isinstance(B, BaseMatrix) else B
+        return write_back(B, getrs_distributed(LU.dist_array(), perm, b, grid))
     lu_ = as_array(LU)
     b = as_array(B, device=lu_.device)
     vec = b.ndim == 1
     if vec:
         b = b[:, None]
-    code = _trans_code(trans)
     if code in ("t", "c"):
         # op(A) x = b  =>  U^op y = b; L^op z = y; x = perm^{-1} scatter
         op = lu_.mH if code == "c" else lu_.mT
@@ -572,10 +589,14 @@ def gesv(A, B, opts=None):
     opts = Options.make(opts)
     lu_, perm, info = getrf(A, opts if not opts.solve_report
                             else opts.replace(solve_report=False))
-    X = getrs(lu_, perm, B, opts)
+    from ..parallel.distribute import is_dist
+
+    # a distributed factor is held by the grid-bound A: getrs solves on its
+    # block layout
+    X = getrs(A if is_dist(lu_) else lu_, perm, B, opts)
     if opts.solve_report:
         report = SolveReport(routine="gesv", info=int(info),
-                             precision_used=_dtype_name(as_array(lu_).dtype),
+                             precision_used=_dtype_name(lu_.dtype),
                              fallback_chain=(str(opts.method_lu),)).finalize()
         report.recovered = report.info == 0
         return X, perm, info, report
@@ -942,7 +963,27 @@ def gesv_rbt(A, B, opts=None, key=None):
     a0 = as_array(A)        # pristine snapshot: each rung re-enters the input
     #                         injection site (transient-fault contract)
     b = as_array(B, device=a0.device)
-    distribution_grid(A)
+    grid = distribution_grid(A)
+    if grid is not None:
+        # construction-time grid: the distributed butterfly + nopiv-LU + IR
+        # path (parallel/rbt.py), like every other driver's grid dispatch
+        from ..parallel import gather
+        from ..parallel.rbt import gesv_rbt_distributed
+
+        X, info, iters, via_rbt = gesv_rbt_distributed(
+            inject("gesv_rbt", a0), b, grid, depth=opts.depth,
+            nb=min(opts.block_size, a0.shape[-1]), key=key,
+            max_iterations=opts.max_iterations,
+            use_fallback=opts.use_fallback_solver, tol=opts.tolerance)
+        X = write_back(B, gather(X))
+        if opts.solve_report:
+            chain = ("rbt",) if via_rbt else ("rbt", "partialpiv")
+            report = SolveReport(routine="gesv_rbt", info=int(info), iters=int(iters),
+                                 precision_used=_dtype_name(a0.dtype),
+                                 fallback_chain=chain).finalize()
+            report.recovered = report.info == 0
+            return X, info, _iters(int(iters)), report
+        return X, info, _iters(int(iters))
     n = a0.shape[-1]
     depth = opts.depth
     # pad n to a multiple of 2^depth for the butterfly recursion

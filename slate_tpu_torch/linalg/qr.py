@@ -339,6 +339,30 @@ def gels_core(a, b):
     return x, torch.where(finite, ginfo, torch.clamp_min(ginfo, 1))
 
 
+def _gels_grid(A, BX, grid, opts):
+    """gels of wrappers bound to a >1-rank grid: the distributed least-squares
+    pipelines on the operands' block layout (gels.cc consumes the
+    construction-time distribution the same way); Auto takes the local
+    path's CholQR-when-very-tall rule."""
+    from ..parallel import (gather, gels_caqr_distributed, gels_cholqr_distributed,
+                            gels_lq_distributed)
+
+    a = A.dist_array() if isinstance(A, BaseMatrix) else as_array(A)
+    b = BX.dist_array() if isinstance(BX, BaseMatrix) else as_array(BX, device=a.device)
+    m, n = a.shape[-2:]
+    if m < n:
+        x = gather(gels_lq_distributed(a, b, grid, nb=opts.block_size))
+    else:
+        method = opts.method_gels
+        if method == MethodGels.Auto:
+            method = MethodGels.CholQR if m >= 4 * n else MethodGels.QR
+        if method == MethodGels.CholQR:
+            x = gels_cholqr_distributed(a, b, grid)
+        else:
+            x = gels_caqr_distributed(a, b, grid, nb=opts.block_size)
+    return write_back(BX, x) if tuple(x.shape) == tuple(b.shape) else x
+
+
 @instrument
 def gels(A, BX, opts=None):
     """Least squares min ||A X - B|| / minimum-norm solve (src/gels.cc dispatch:
@@ -355,10 +379,12 @@ def gels(A, BX, opts=None):
     deficiency should check ``abs(diagonal(R))`` from ``geqrf`` directly.
     """
     opts = Options.make(opts)
+    grid = distribution_grid(A, BX)
+    if grid is not None:
+        return _gels_grid(A, BX, grid, opts)
     a = as_array(A)
     b = as_array(BX, device=a.device)
     m, n = a.shape[-2:]
-    distribution_grid(A, BX)
     method = opts.method_gels
     if method == MethodGels.Auto:
         # cholqr for very tall panels (the reference's heuristic picks cholqr

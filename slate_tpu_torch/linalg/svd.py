@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..core.exceptions import slate_assert
-from ..core.matrix import as_array, distribution_grid
+from ..core.matrix import as_array, distribution_grid, refuse_grid
 from ..core.types import MethodSVD, Options
 from ..obs import instrument
 from ..robust import inject
@@ -62,7 +62,7 @@ def svd(A, opts=None, want_u: bool = True, want_vt: bool = True,
     takes that path on its own (bisection needs a bidiagonal to bisect)."""
     opts = Options.make(opts)
     timers = Timers()
-    distribution_grid(A)
+    refuse_grid(distribution_grid(A))
     slate_assert(not chase_distributed,
                  "chase_distributed requires a grid-bound wrapper, and "
                  "distributed execution is not ported")
@@ -166,7 +166,7 @@ def svd_range(A, opts=None, *, il: int = 0, iu: Optional[int] = None,
     Returns ``(S, U, VT)`` with S (j,) descending, U (m, j), VT (j, n)
     (None without vectors); accuracy is bisection's absolute O(eps·σ_max)."""
     opts = Options.make(opts)
-    distribution_grid(A)
+    refuse_grid(distribution_grid(A))
     a = as_array(A)
     m, n = a.shape[-2:]
     if m < n:

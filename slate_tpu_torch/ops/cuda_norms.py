@@ -27,7 +27,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Set, Tuple
 
 import torch
 
@@ -59,6 +59,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 #: kernel launches per wrapper (a launch for a comparison counts too: callers
 #: that need main-path counts reset these to 0 around the path)
 LAUNCHES: Dict[str, int] = {"col_reduce": 0, "row_sums": 0}
+#: the configuration of every launch, (wrapper, (m, n), dtype, row stride,
+#: 16-byte aligned base, mode, unit_diag[, op code]): a check can hold each
+#: kernel at the shapes and layouts a run gave it
+LAUNCHED: Set[tuple] = set()
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "norms.cu")
@@ -330,6 +334,8 @@ def _run(name: str, kind: str, a: torch.Tensor, mode: int, *args) -> torch.Tenso
     if rc != 0:
         raise SlateError(f"CUDA norm kernel launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
+    LAUNCHED.add((name, (m, n), a.dtype, a.stride(0), a.data_ptr() % _LOAD_BYTES == 0,
+                  mode) + args)
     return out
 
 

@@ -1,0 +1,178 @@
+"""Grid-dim collective primitives for the shard-local bodies.
+
+Reference analogue (SURVEY.md §5.8): SLATE's tile collectives — ``listBcast``
+(BaseMatrix.hh:1999-2100), ``listReduce`` (BaseMatrix.hh:2219-2258), the pivot
+``MPI_Bcast`` (getrf.cc:113-119) and the lookahead panel sends.
+
+Each helper runs over one grid dim (``"p"`` or ``"q"``) or both flattened
+(``FLAT``, p-major: rank i*q + j), on the process groups of the grid's
+``DeviceMesh``.  Every rank of the group must call it with a tensor of the
+same shape.  All traffic goes through the four module-level primitives
+(``_all_reduce``, ``_all_gather``, ``_reduce_scatter``, ``_send_recv``).
+NCCL has no complex type, so complex tensors travel as their real view.
+
+=====================  ==============================================
+reference pattern      primitive
+=====================  ==============================================
+listBcast (root tile)  ``axis_bcast`` (sum of a masked contribution)
+panel gather           ``axis_allgather``
+listReduce             ``axis_allreduce`` / ``axis_reduce_scatter``
+lookahead panel sends  ``ring_shift`` (point to point)
+=====================  ==============================================
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.distributed as dist
+
+from .mesh import COL_AXIS, FLAT, ROW_AXIS
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN}
+
+
+def _mesh(grid):
+    """The DeviceMesh of a ProcessGrid (a DeviceMesh passes through)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return grid if isinstance(grid, DeviceMesh) else grid.mesh
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """The contiguous real tensor a collective moves (complex as its real view)."""
+    t = t.contiguous()
+    return torch.view_as_real(t) if t.is_complex() else t
+
+
+def _all_reduce(t: torch.Tensor, group, op) -> torch.Tensor:
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def _all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, t, group=group)
+    return out
+
+
+def _reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the group, each member keeping its 1/size slice of dim 0."""
+    size = dist.get_world_size(group)
+    if dist.get_backend(group) == "nccl":
+        out = t.new_empty((t.shape[0] // size,) + tuple(t.shape[1:]))
+        dist.reduce_scatter_tensor(out, t, group=group)
+        return out
+    # gloo has no reduce_scatter: reduce, then keep the own slice
+    dist.all_reduce(t, group=group)
+    me = dist.get_group_rank(group, dist.get_rank())
+    return t.chunk(size, dim=0)[me].clone()
+
+
+def _send_recv(send: torch.Tensor, dst: int, recv: torch.Tensor, src: int,
+               group) -> torch.Tensor:
+    ops = [dist.P2POp(dist.isend, send, dst, group),
+           dist.P2POp(dist.irecv, recv, src, group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv
+
+
+def _exchange(sends, recvs) -> None:
+    """Point-to-point exchange on the world group: ``sends`` and ``recvs`` are
+    lists of (tensor, global rank) pairs (an all-to-all of unequal blocks)."""
+    ops = ([dist.P2POp(dist.isend, t, r) for t, r in sends]
+           + [dist.P2POp(dist.irecv, t, r) for t, r in recvs])
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+def _dims(axis):
+    return (ROW_AXIS, COL_AXIS) if axis == FLAT or axis == list(FLAT) else (axis,)
+
+
+def axis_size(grid, axis) -> int:
+    mesh = _mesh(grid)
+    size = 1
+    for d in _dims(axis):
+        size *= mesh.size(mesh.mesh_dim_names.index(d))
+    return size
+
+
+def axis_index(grid, axis) -> int:
+    """This rank's coordinate along the axis (its rank in the communicator)."""
+    mesh = _mesh(grid)
+    if tuple(_dims(axis)) == FLAT:
+        return (mesh.get_local_rank(ROW_AXIS) * axis_size(mesh, COL_AXIS)
+                + mesh.get_local_rank(COL_AXIS))
+    return mesh.get_local_rank(axis)
+
+
+def axis_allreduce(x: torch.Tensor, grid, axis, op: str = "sum") -> torch.Tensor:
+    """listReduce analogue: elementwise reduce across the axis, result on
+    every member (a new tensor)."""
+    if op not in _OPS:
+        raise ValueError(f"unsupported reduce op {op!r}")
+    mesh = _mesh(grid)
+    cplx = x.is_complex()
+    if cplx and op != "sum":
+        raise ValueError("max/min reductions need real tensors")
+    w = _wire(x).clone()
+    for d in _dims(axis):
+        w = _all_reduce(w, mesh.get_group(d), _OPS[op])
+    return torch.view_as_complex(w) if cplx else w
+
+
+def axis_bcast(x: torch.Tensor, grid, axis, root: int = 0) -> torch.Tensor:
+    """Broadcast ``x`` from the member at ``root`` to every member: the sum of
+    a masked contribution (listBcast; the JAX package's masked psum)."""
+    contrib = x if axis_index(grid, axis) == root else torch.zeros_like(x)
+    return axis_allreduce(contrib, grid, axis)
+
+
+def axis_allgather(x: torch.Tensor, grid, axis, dim: int = 0) -> torch.Tensor:
+    """Concatenate every member's ``x`` along ``dim`` in axis order (the tiled
+    all-gather)."""
+    mesh = _mesh(grid)
+    cplx = x.is_complex()
+    w = _wire(x)
+    dim = dim % x.ndim
+    # FLAT gathers q first, then p: the result runs p-major, like (p, q)
+    for d in reversed(_dims(axis)):
+        w = torch.cat(_all_gather(w, mesh.get_group(d)), dim=dim)
+    return torch.view_as_complex(w) if cplx else w
+
+
+def axis_reduce_scatter(x: torch.Tensor, grid, axis, scatter_dim: int = 0
+                        ) -> torch.Tensor:
+    """Reduce across the axis, each member keeping its slice of
+    ``scatter_dim`` (listReduce with each rank keeping its own tiles)."""
+    mesh = _mesh(grid)
+    cplx = x.is_complex()
+    w = _wire(x.movedim(scatter_dim, 0)).clone()
+    for d in _dims(axis):
+        w = _reduce_scatter(w, mesh.get_group(d))
+    out = torch.view_as_complex(w) if cplx else w
+    return out.movedim(0, scatter_dim)
+
+
+def ring_shift(x: torch.Tensor, grid, axis, shift: int = 1) -> torch.Tensor:
+    """Rotate shards along one grid dim: member i receives member
+    (i + shift) mod size's ``x`` (a Cannon/SUMMA pipeline step, the reference's
+    lookahead panel sends).  One point-to-point pair per member."""
+    mesh = _mesh(grid)
+    size = axis_size(mesh, axis)
+    shift %= size
+    if shift == 0:
+        return x.clone()
+    group = mesh.get_group(axis)
+    ranks = dist.get_process_group_ranks(group)
+    me = mesh.get_local_rank(axis)
+    cplx = x.is_complex()
+    w = _wire(x)
+    got = _send_recv(w, ranks[(me - shift) % size], torch.empty_like(w),
+                     ranks[(me + shift) % size], group)
+    return torch.view_as_complex(got) if cplx else got

@@ -244,7 +244,10 @@ def inject(driver: str, x, point: str = POINT_INPUT):
     if plan is None:
         return x
     for spec in plan._take(driver, point):
-        x = _apply(spec, x, plan.seed)
+        from ..parallel.distribute import gather
+
+        # a distributed operand is corrupted whole (the drivers take either)
+        x = _apply(spec, gather(x), plan.seed)
         trace_event("fault_inject", driver=driver, kind=spec.kind,
                     point=point, call=spec.call_index)
         count_event("slate_robust_faults_injected_total",

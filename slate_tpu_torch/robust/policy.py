@@ -65,9 +65,7 @@ class RetryPolicy:
 
 #: The declared escalation ladders — the previously implicit per-driver
 #: fallbacks, codified (first rung = fast path, later rungs = escalations).
-#: The distributed entries name ladders of drivers the port does not have yet
-#: (ROADMAP.md queue A item 15); they stay declared so the table matches the
-#: JAX package's.
+#: The distributed entries are the ladders of ``slate_tpu_torch.parallel``.
 LADDERS = {
     "gesv_mixed": ("mixed", "full"),
     "gesv_mixed_gmres": ("mixed_gmres", "full"),

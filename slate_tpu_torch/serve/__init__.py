@@ -36,8 +36,9 @@ Verb-style usage (the simplified_api.hh idiom)::
     results = serve.solve_many([("posv", a1, b1), ("gels", a2, b2)])
     serve.shutdown()
 
-The distributed batched drivers of the JAX package (``parallel/batched.py``)
-are not ported yet (ROADMAP.md queue A item 15).
+The batch-sharded drivers (``gesv_batched_distributed``,
+``posv_batched_distributed``, :mod:`slate_tpu_torch.parallel.batched`) are
+re-exported here for bulk offline batches over a process grid.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ from .executor import Chunk, Executor, ExecutorPool, executable_key
 from .flight import FlightRecord, FlightRecorder, validate_flight
 from .queue import (BucketPolicy, SERVE_SITE, ServeQueue, Ticket,
                     pad_request, solve_many, unpad_result)
+from ..parallel.batched import gesv_batched_distributed, posv_batched_distributed
 from .workload import (make_requests, run_continuous_ab,
                        run_mixed_workload, run_overload_workload,
                        run_scale_workload)
@@ -74,6 +76,7 @@ __all__ = [
     "EscalationBudget", "LANES", "TokenBucket", "shed_lanes_from_verdicts",
     "QueueOverloadError", "DeadlineExceededError", "SERVE_SITE",
     "submit", "default_queue", "shutdown",
+    "gesv_batched_distributed", "posv_batched_distributed",
 ]
 
 _QUEUE: Optional[ServeQueue] = None

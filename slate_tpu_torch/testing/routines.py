@@ -25,7 +25,7 @@ import torch
 
 from .. import matgen
 from ..core.exceptions import NumericalError, SlateError
-from ..core.matrix import _NOT_PORTED_GRID, resolve_device, torch_dtype
+from ..core.matrix import resolve_device, torch_dtype
 from .sweeper import TestResult, time_call
 
 # filled by @_routine below: name -> {"category", "runner", "doc"}
@@ -54,19 +54,27 @@ def _phases(routine: str) -> dict:
     return phase_report(t, min_frac=0.02) if t else {}
 
 
-def _grid(p):
-    """A grid-swept row (tester p x q dimension) needs the distributed tier,
-    which the port does not have yet: the row reports that as its error."""
-    if p.get("grid"):
-        raise SlateError(_NOT_PORTED_GRID)
-    return None
+def _grid(p, dev=None):
+    """ProcessGrid for a grid-swept row (tester p x q dimension, like the
+    reference tester's --p/--q sweep) on the row's device, or None for
+    single-device rows.  A grid larger than the process group's world (one
+    rank when the tester runs without a launcher) is the row's error."""
+    g = p.get("grid")
+    if not g:
+        return None
+    from ..parallel import ProcessGrid
+
+    return ProcessGrid.cached(g[0], g[1], device=dev)
 
 
 def _np(x) -> np.ndarray:
-    """Host numpy copy of a result: a wrapper's tensor, a tensor on any device,
-    or host data."""
+    """Host numpy copy of a result: a wrapper's tensor, a tensor on any device
+    (a distributed one gathered), or host data."""
+    from ..parallel.distribute import gather
+
     if hasattr(x, "array"):
         x = x.array
+    x = gather(x)
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
@@ -141,7 +149,7 @@ def run_gemm(p, slate, dev):
     B = _gen(p["kind"], k, n, dict(p, seed=p["seed"] + 1), dev)
     C0 = _gen(p["kind"], m, n, dict(p, seed=p["seed"] + 2), dev)
     alpha, beta = 2.5, 0.5
-    g = _grid(p)
+    g = _grid(p, dev)
     Am = slate.Matrix.from_array(_t(A, dev), nb=p["nb"], grid=g)
     Bm = slate.Matrix.from_array(_t(B, dev), nb=p["nb"], grid=g)
     C0_t = _t(C0, dev)
@@ -306,7 +314,7 @@ def run_potrf(p, slate, dev):
     """‖A − L Lᴴ‖/‖A‖ reconstruction check."""
     n = p["n"]
     A = _spd(n, p, dev)
-    A_t, g = _t(A, dev), _grid(p)
+    A_t, g = _t(A, dev), _grid(p, dev)
     (L, info), t = time_call(lambda: slate.potrf(
         slate.HermitianMatrix.from_array(slate.Uplo.Lower, A_t, nb=p["nb"], grid=g)),
         repeat=p["repeat"], device=dev)
@@ -320,7 +328,7 @@ def run_posv(p, slate, dev):
     n, nrhs = p["n"], p.get("nrhs", 10)
     A = _spd(n, p, dev)
     b = _gen("randn", n, nrhs, p, dev)
-    A_t, b_t, g = _t(A, dev), _t(b, dev), _grid(p)
+    A_t, b_t, g = _t(A, dev), _t(b, dev), _grid(p, dev)
 
     def call():
         Bm = slate.Matrix.from_array(b_t, nb=p["nb"])
@@ -376,9 +384,12 @@ def run_gesv(p, slate, dev):
     n, nrhs = p["n"], p.get("nrhs", 10)
     A = _gen(p["kind"], n, n, p, dev) + n * np.eye(n, dtype=p["dtype"])
     b = _gen("randn", n, nrhs, p, dev)
-    A_t, b_t, g = _t(A, dev), _t(b, dev), _grid(p)
-    (X, perm, info), t = time_call(lambda: slate.gesv(A_t, b_t),
-                                   repeat=p["repeat"], device=dev)
+    A_t, b_t, g = _t(A, dev), _t(b, dev), _grid(p, dev)
+    # wrapper built per call: gesv's getrf writes the LU factor back into a
+    # Matrix argument, so a hoisted wrapper would poison repeat > 1 timings
+    (X, perm, info), t = time_call(lambda: slate.gesv(
+        slate.Matrix.from_array(A_t.clone(), nb=p["nb"], grid=g)
+        if g is not None else A_t, b_t), repeat=p["repeat"], device=dev)
     x = _np(X)
     err = _rel(np.linalg.norm(A @ x - b), np.linalg.norm(A) * np.linalg.norm(x))
     return _result(p, err, 2 * n ** 3 / 3 + 2.0 * n * n * nrhs, t)
@@ -661,8 +672,11 @@ def run_heev(p, slate, dev):
     """‖A Z − Z Λ‖/‖A‖ + ‖I − ZᴴZ‖ (the reference's eig check)."""
     n = p["n"]
     A = _herm(n, p, dev)
-    A_t, g = _t(A, dev), _grid(p)
-    (lam, Z), t = time_call(lambda: slate.heev(A_t), repeat=p["repeat"], device=dev)
+    A_t, g = _t(A, dev), _grid(p, dev)
+    Aop = (slate.HermitianMatrix.from_array(slate.Uplo.Lower, A_t.clone(),
+                                            nb=p["nb"], grid=g)
+           if g is not None else A_t)
+    (lam, Z), t = time_call(lambda: slate.heev(Aop), repeat=p["repeat"], device=dev)
     lam, Z = _np(lam), _np(Z)
     err1 = _rel(np.linalg.norm(A @ Z - Z * lam[None, :]), np.linalg.norm(A))
     err2 = np.linalg.norm(Z.conj().T @ Z - np.eye(n)) / n
@@ -850,8 +864,10 @@ def run_hegv(p, slate, dev):
 def run_svd(p, slate, dev):
     m, n = p["m"], p["n"]
     A = _gen(p["kind"], m, n, p, dev)
-    A_t, g = _t(A, dev), _grid(p)
-    (S, U, VT), t = time_call(lambda: slate.svd(A_t), repeat=p["repeat"], device=dev)
+    A_t, g = _t(A, dev), _grid(p, dev)
+    Aop = (slate.Matrix.from_array(A_t.clone(), nb=p["nb"], grid=g)
+           if g is not None else A_t)
+    (S, U, VT), t = time_call(lambda: slate.svd(Aop), repeat=p["repeat"], device=dev)
     S, U, VT = _np(S), _np(U), _np(VT)
     k = min(m, n)
     err1 = _rel(np.linalg.norm(A - (U[:, :k] * S[None, :k]) @ VT[:k]),

@@ -236,11 +236,16 @@ def test_tile_rank_and_owner_map():
 
 
 def test_multi_device_grid_is_refused():
+    """A wrapper bound to a grid of more than one rank reaches the drivers
+    whose distributed form is still owed (item 15b) and they refuse it; the
+    drivers with a distributed form route to it (tests/test_torch_grid_dispatch.py)."""
     class Grid:
         size = 4
 
-    with pytest.raises(st.SlateError, match="queue A item 15"):
-        st.Matrix.from_array(torch.zeros((4, 4)), grid=Grid())
+    A = st.HermitianMatrix.from_array("lower", torch.eye(4, dtype=torch.float64),
+                                      grid=Grid())
+    with pytest.raises(st.SlateError, match="queue A item 15b"):
+        st.heev(A)
 
 
 def _state(w) -> dict:

@@ -22,7 +22,6 @@ import torch
 from slate_tpu import testing as jt
 from slate_tpu.testing import __main__ as jmain
 from slate_tpu.testing import sweeper as jsw
-from slate_tpu_torch.core.matrix import _NOT_PORTED_GRID
 from slate_tpu_torch.testing import ROUTINES, run_routine
 from slate_tpu_torch.testing import __main__ as tmain
 from slate_tpu_torch.testing import driver as tdriver
@@ -47,6 +46,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def rank_pool():
+    """Eight gloo ranks on the CPU for the grid-swept rows."""
+    from slate_tpu_torch.parallel.launch import RankPool
+
+    with RankPool(8) as pool:
+        yield pool
 
 
 def params(n=48, dtype=np.float32, **kw):
@@ -219,14 +227,29 @@ class TestDispatch:
         assert r.error is not None and r.time_s is not None
 
     @pytest.mark.parametrize("routine", ["gemm", "potrf", "gesv"])
-    def test_grid_sweep_routes_distributed(self, routine):
-        """--grid PxQ rows need the distributed tier, which the port does not
-        have until ROADMAP.md queue A item 15: the row reports it as an error
-        (the JAX package's rows pass through its distributed drivers; this
-        test changes to expect "pass" with item 15)."""
+    def test_grid_sweep_routes_distributed(self, routine, rank_pool):
+        """--grid PxQ rows run the distributed drivers (the reference tester's
+        p/q sweep dimension), here on a 2x4 grid of gloo ranks: the row
+        passes, and every rank made collectives during it."""
+        from torch_rank_jobs import counted_call
+
         p = params(32, np.float64, nb=8, grid=(2, 4))
-        r = cpu_row(routine, p)
-        assert r.status == "error" and _NOT_PORTED_GRID in r.message
+        got = rank_pool.run(counted_call, "slate_tpu_torch.testing.run_routine",
+                            (routine, p), {"device": "cpu"}, (2, 4, "col"))
+        r = got[0][0]
+        assert r.status == "pass", (r.status, r.message)
+        assert all(calls > 0 for _, calls in got), [calls for _, calls in got]
+
+    @pytest.mark.parametrize("routine", ["heev", "svd"])
+    def test_grid_sweep_refuses_15b_drivers(self, routine, rank_pool):
+        """The eigenvalue and SVD rows on a grid report the refusal of the
+        drivers whose distributed form is not ported yet (item 15b)."""
+        from slate_tpu_torch.core.matrix import _NOT_PORTED_GRID
+
+        p = params(32, np.float64, nb=8, grid=(2, 4))
+        r = rank_pool.call("slate_tpu_torch.testing.run_routine", routine, p,
+                           device="cpu", grid=(2, 4, "col"))
+        assert r.status == "error" and _NOT_PORTED_GRID in r.message, r.message
 
     def test_runner_never_raises(self):
         r = run_routine("gemm", {"m": 8}, device="cpu")
