@@ -102,7 +102,23 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     bucket 64); each step's seconds beside the single-device port's on the
     same input, its error under the single-device phase's gate, its
     agreement with the single-device port, the grid, the world size and the
-    phase's peak device memory.
+    phase's peak device memory;
+13. the second half of the distributed tier on a 1x1 NCCL grid, with the
+    kernels' launch counters set to 0 just before and read just after (both
+    must launch: the drivers' scaling and every gate's norm come from
+    ``norm_distributed``): ``heev_distributed`` values and
+    ``svd_distributed`` values at n = 8192 f32 (nb 64, phase 10's two-stage
+    configurations and matrices: the trace and sum-of-squares gates and the
+    distance from phase 10's single-device two-stage values within
+    50 eps sqrt(n) ||A||_2); at n = 4096 f32 ``heev_distributed`` with
+    vectors (stedc) and again with ``chase_distributed=True``,
+    ``heev_range_distributed`` and ``svd_range_distributed`` (k = 64),
+    ``svd_distributed`` with vectors, ``hegv_distributed``, and
+    ``pbsv_distributed`` / ``gbsv_distributed`` (kd = kl = ku = 64) and
+    ``hesv_distributed`` under phase 10's small-step gates; at n = 512 f64
+    ``MethodEig.QR`` (steqr on the rows, 100 n eps) and bisection.  Each
+    step's seconds beside phase 10's single-device seconds on the same
+    matrix, the phase's wall time and peak device memory.
 
 The last lines are a JSON line of per-kernel numbers, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -632,7 +648,8 @@ def values_checks(A, lam, prefix: str) -> dict:
 def with_phase_split(fn):
     """``fn`` run with tracing on, so the driver's timers end each phase in
     a device sync (``utils.trace.Timers``) and hold the device's phase split;
-    a plain call stays asynchronous."""
+    a plain call stays asynchronous.  When tracing was off, the events the
+    run recorded are dropped with it."""
     def run():
         was_on = trace.is_on()
         trace.on()
@@ -641,6 +658,7 @@ def with_phase_split(fn):
         finally:
             if not was_on:
                 trace.off()
+                trace.finish(os.devnull)
     return run
 
 
@@ -693,6 +711,7 @@ def eig_path(device, sizes: dict = EIG) -> dict:
         G, want_u=False, want_vt=False, method="two_stage", chase_pipeline=True)))
     out["svd_two_stage_vs_fused"] = float((S_2 - S_f).abs().max() / S_f.max())
     out["svd_two_stage_phases"] = dict(slate.svd.timers)
+    out["refs"] = {"heev_values": lam_2, "svd_values": S_2}
     out["times"] = times
     return out
 
@@ -1666,6 +1685,8 @@ def full_eig_path() -> dict:
     res = eig_path("cuda")
     wall = time.perf_counter() - t0
     launches = dict(cn.LAUNCHES)
+    SINGLE_EIG.update(res.pop("refs"))
+    SINGLE_EIG.update(res["times"])
     _say_all("eig", res)
     check_eig_path(res)
     n, n2 = EIG["n"], EIG["two_stage_n"]
@@ -1684,6 +1705,7 @@ def full_eig_path() -> dict:
     for key, v in svd_driver_times(EIG["small_n"]).items():
         say(f"eig_svd_driver_n{EIG['small_n']}_{key}", v)
     small = small_eig("cuda")
+    SINGLE_EIG.update(small["times"])
     _say_all("eig_small", small)
     check_small_eig(small)
     say("eig_small_wall_s", time.perf_counter() - t0)
@@ -2063,6 +2085,12 @@ def full_tester_path() -> dict:
 # least squares at the gels bench shape (bench.py:376-391), CAQR at 8192^2, the
 # mixed SPD solve in f64, the norms, the inverses at 4096^2 f64 and the batched
 # solve at the serving configuration (batch 32, bucket 64)
+# the single-device two-stage values and step seconds of phase 10, the
+# denominators of phase 13's ratios (phase 13 builds its matrices from the
+# same seeds and does not run those steps again)
+SINGLE_EIG = {}
+
+
 DIST = {"n": N, "nb": NB, "nrhs": NRHS, "gesv_nb": 256, "ls_m": 131072,
         "ls_n": 4096, "ls_nrhs": 16, "geqrf_n": 8192, "geqrf_nb": 256,
         "mixed_n": N, "inv_n": 4096, "batch": 32, "bucket": 64, "batch_nrhs": 1}
@@ -2306,6 +2334,341 @@ def full_dist_path() -> dict:
     return launches
 
 
+# phase 13: the second half of the distributed tier (eig / SVD / generalized /
+# band / indefinite) on a 1x1 grid.  Full width: phase 10's two-stage values
+# configurations (bench.py:632-735); the rest at phase 10's small_n and
+# method_n.  Every matrix comes from phase 10's seed, so its single-device
+# seconds serve as the denominators.
+DIST_EIG = {"two_stage_n": EIG["two_stage_n"], "small_n": EIG["small_n"],
+            "method_n": EIG["method_n"], "range_k": EIG["range_k"],
+            "band_k": EIG["band_k"], "nb": 64, "solve_nb": 256, "sterf_n": 512}
+
+# phase 10's single-device steps behind each phase-13 step
+DIST_EIG_SINGLE = {
+    "heev_values": "heev_two_stage_values_s", "svd_values": "svd_two_stage_values_s",
+    "heev_dc": "heev_two_stage_vectors_s", "heev_chase_dist": "heev_two_stage_vectors_s",
+    "heev_range": "heev_range_s", "hegv": "hegv_s", "svd_vectors": "svd_two_stage_vectors_s",
+    "svd_range": "svd_range_s", "pbsv": "pbsv_s", "gbsv": "gbsv_s", "hesv": "hesv_s",
+    "heev_qr": "heev_qr_s", "heev_bisection": "heev_bisection_s"}
+
+
+def single_eig_refs(device, sizes: dict) -> dict:
+    """Phase 10's single-device steps that phase 13 compares with, run here
+    (the CPU rehearsal; on the card phase 10 has run them): the two-stage
+    values at two_stage_n and each step's seconds."""
+    ref = dict(small_eig(device, {**EIG, **sizes})["times"])
+    times, step = _timed(device)
+    n2 = sizes["two_stage_n"]
+    A = sym_normal(n2, torch.float32, device, SEED + 52)
+    ref["heev_values"], _ = step("heev_two_stage_values_s", lambda: slate.heev(
+        A, want_vectors=False, method="two_stage", chase_pipeline=True))
+    G = randn((n2, n2), torch.float32, device, SEED + 53)
+    ref["svd_values"], _, _ = step("svd_two_stage_values_s", lambda: slate.svd(
+        G, want_u=False, want_vt=False, method="two_stage", chase_pipeline=True))
+    ref.update(times)
+    return ref
+
+
+@contextlib.contextmanager
+def bind_one_rank_grids():
+    """Let a wrapper bind to a grid of one rank (``core.matrix.BIND_MIN_RANKS``),
+    so the public drivers take their grid routes on one card."""
+    from slate_tpu_torch.core import matrix as cm
+
+    old, cm.BIND_MIN_RANKS = cm.BIND_MIN_RANKS, 1
+    try:
+        yield
+    finally:
+        cm.BIND_MIN_RANKS = old
+
+
+def dist_eig_path(device, sizes: dict = DIST_EIG, single=None) -> dict:
+    """The grid routes of the public eig/SVD/band/indefinite drivers on a 1x1
+    grid of ``device``, on the matrices of phase 10's steps, with wrappers
+    bound to the grid (:func:`bind_one_rank_grids`): each step's seconds, its
+    error under that step's gate, its distance from the single-device values
+    over ||A||_2, and the factors the band and indefinite routes write back
+    into their wrappers, held against the distributed drivers' own results.
+    ``hegv`` has no grid route (nor in the JAX package) and runs
+    ``hegv_distributed``.  Every other norm in the gates comes from
+    ``norm_distributed`` on the grid (the norm kernels on the card)."""
+    import torch.distributed as dist
+    from slate_tpu_torch import parallel as par
+    from slate_tpu_torch.parallel.band_dist import _dense_of
+    from slate_tpu_torch.parallel.distribute import is_dist
+
+    single = single if single is not None else single_eig_refs(device, sizes)
+    grid = par.ProcessGrid.cached(1, 1, device=device)
+    out = {"grid": f"{grid.p}x{grid.q} {grid.order}",
+           "world_size": dist.get_world_size(), "backend": str(dist.get_backend())}
+    times, step = _timed(device)
+    f32, f64 = torch.float32, torch.float64
+    nb, snb = sizes["nb"], sizes["solve_nb"]
+    opts = {"block_size": nb}
+
+    def dnorm(kind, M) -> float:
+        return float(par.norm_distributed(kind, M, grid))
+
+    def dgate_eig(A, lam, Z) -> float:
+        Z = par.gather(Z)
+        R = torch.matmul(A, Z).sub_(Z * lam.to(Z.dtype)[None, :])
+        eye = torch.eye(Z.shape[-1], dtype=Z.dtype, device=Z.device)
+        return max(dnorm("fro", R) / dnorm("fro", A),
+                   dnorm("fro", torch.matmul(Z.mH, Z).sub_(eye)) / A.shape[-1])
+
+    def dgate_svd(A, S, U, VT) -> float:
+        U, VT = par.gather(U), par.gather(VT)
+        R = torch.matmul(U * S.to(U.dtype)[None, :], VT).sub_(A)
+        eye = torch.eye(S.shape[-1], dtype=U.dtype, device=U.device)
+        return max(dnorm("fro", R) / dnorm("fro", A),
+                   dnorm("fro", torch.matmul(U.mH, U).sub_(eye)) / S.shape[-1])
+
+    def dbackward(A, X, B) -> float:
+        X = par.gather(X)
+        return dnorm("fro", torch.matmul(A, X).sub_(B)) / (dnorm("fro", A) * dnorm("fro", X))
+
+    def herm(A):
+        return slate.HermitianMatrix.from_array("lower", A, nb=nb, grid=grid)
+
+    def dense(M, tile=nb):
+        return slate.Matrix.from_array(M.clone(), nb=tile, grid=grid)
+
+    with bind_one_rank_grids():
+        # full width: the two-stage values of phase 10 (n = 8192 f32, nb 64)
+        n2 = sizes["two_stage_n"]
+        A = sym_normal(n2, f32, device, SEED + 52)
+        Aw = herm(A)
+        require(is_dist(Aw.storage.array),
+                "phase 13: the wrapper did not bind to the 1x1 grid")
+        lam, _ = step("heev_values_dist_s", lambda: slate.heev(Aw, opts, want_vectors=False))
+        a_fro = dnorm("fro", A)
+        lam64 = lam.double()
+        a_2 = float(single["heev_values"].abs().max())        # ||A||_2 of a symmetric A
+        out["heev_values_ascending"] = bool(torch.all(lam[1:] >= lam[:-1]))
+        out["heev_values_trace_err"] = abs(float(lam64.sum()) - float(
+            torch.diagonal(A).double().sum())) / (n2 * a_fro)
+        out["heev_values_sumsq_err"] = abs(float((lam64 ** 2).sum()) - a_fro ** 2) / a_fro ** 2
+        out["heev_values_vs_single"] = float((lam - single["heev_values"]).abs().max()) / a_2
+        # max|λ| = ||A||_2 <= ||A||_inf (any induced norm bounds the spectral radius)
+        out["heev_values_over_inf_norm"] = float(lam.abs().max()) / dnorm("inf", A)
+        del A, Aw
+        G = randn((n2, n2), f32, device, SEED + 53)
+        S, _, _ = step("svd_values_dist_s", lambda: slate.svd(
+            dense(G), opts, want_u=False, want_vt=False))
+        g_fro = dnorm("fro", G)
+        out["svd_values_descending"] = bool(torch.all(S[1:] <= S[:-1]))
+        out["svd_values_sumsq_err"] = abs(float((S.double() ** 2).sum()) - g_fro ** 2) / g_fro ** 2
+        out["svd_values_vs_single"] = float((S - single["svd_values"]).abs().max()) / float(
+            single["svd_values"][0])
+        # σ_max = ||G||_2 <= sqrt(||G||_1 ||G||_inf)
+        out["svd_values_over_norm_bound"] = float(S[0]) / math.sqrt(
+            dnorm("one", G) * dnorm("inf", G))
+        del G
+
+        # small_n f32: phase 10's small_eig steps
+        n, k, kb = sizes["small_n"], sizes["range_k"], sizes["band_k"]
+        A = sym_normal(n, f32, device, SEED + 60)
+        Aw = herm(A)
+        lam, Z = step("heev_dc_dist_s", lambda: slate.heev(Aw, opts))
+        out["heev_dc_gate"] = dgate_eig(A, lam, Z)
+        a_2 = float(lam.abs().max())
+        out["heev_dc_over_inf_norm"] = a_2 / dnorm("inf", A)
+        del Z
+        lam_c, Z = step("heev_chase_dist_dist_s", lambda: slate.heev(
+            Aw, opts, chase_distributed=True))
+        out["heev_chase_dist_gate"] = dgate_eig(A, lam_c, Z)
+        out["heev_chase_dist_vs_dc"] = float((lam_c - lam).abs().max()) / a_2
+        del Z
+        il = n // 2 - k // 2
+        lr, Zr = step("heev_range_dist_s", lambda: slate.heev_range(
+            Aw, opts, il=il, iu=il + k))
+        out["heev_range_gate"] = dgate_eig(A, lr, Zr)
+        out["heev_range_vs_full"] = float((lr - lam[il:il + k]).abs().max()) / a_2
+        del Zr
+        Bs = spd(n, torch.Generator(device=device).manual_seed(SEED + 61), device, f32)
+        lg, Xg = step("hegv_dist_s", lambda: par.hegv_distributed(1, A, Bs, grid, nb=nb))
+        Xg = par.gather(Xg)
+        R = torch.matmul(A, Xg).sub_(torch.matmul(Bs, Xg) * lg[None, :])
+        out["hegv_residual"] = dnorm("fro", R) / (
+            (dnorm("fro", A) + dnorm("fro", Bs) * float(lg.abs().max())) * dnorm("fro", Xg))
+        del Xg, R, Bs
+        G = randn((n, n), f32, device, SEED + 62)
+        Gw = dense(G)
+        S, U, VT = step("svd_vectors_dist_s", lambda: slate.svd(Gw, opts))
+        out["svd_vectors_gate"] = dgate_svd(G, S, U, VT)
+        del U, VT
+        Sr, Ur, VTr = step("svd_range_dist_s", lambda: slate.svd_range(Gw, opts, il=0, iu=k))
+        Ur, VTr = par.gather(Ur), par.gather(VTr)
+        out["svd_range_vs_full"] = float((Sr - S[:k]).abs().max()) / float(S[0])
+        out["svd_range_residual"] = dnorm("fro", torch.matmul(G, VTr.mH).sub_(
+            Ur * Sr[None, :])) / dnorm("fro", G)
+        del G, Gw, Ur, VTr
+
+        # the band and indefinite solves: each route's write-back is held
+        # bit for bit against the distributed driver's own factor
+        sopts = {"block_size": snb}
+        Bn = randn((n, NRHS), f32, device, SEED + 63)
+        r = torch.arange(n, device=device)
+        inband = (r[:, None] - r[None, :]).abs() <= kb
+        P = torch.where(inband, sym_normal(n, f32, device, SEED + 64), 0.0)
+        P.diagonal().add_(2.0 * kb)
+        Pw = slate.HermitianBandMatrix("lower", n, kb, snb, grid=grid, device=device, dtype=f32)
+        Pw.set_array(torch.tril(P))
+        Bw = dense(Bn, snb)
+        X, info = step("pbsv_dist_s", lambda: slate.pbsv(Pw, Bw, sopts))
+        out["pbsv_info"], out["pbsv_backward_error"] = int(info), dbackward(P, X, Bn)
+        out["pbsv_x_written_back"] = bool(torch.equal(Bw.array, par.gather(X)))
+        Lb, _ = par.pbtrf_distributed(par.dense_to_band_lower(P, kb), grid, kb, nb=snb)
+        out["pbsv_factor_written_back"] = bool(torch.equal(
+            Pw.array, par.gather(_dense_of(Lb, grid, n, kb, 0))))
+        Pu = slate.HermitianBandMatrix("upper", n, kb, snb, grid=grid, device=device, dtype=f32)
+        Pu.set_array(torch.triu(P))
+        Xu, info = slate.pbsv(Pu, dense(Bn, snb), sopts)
+        out["pbsv_upper_info"] = int(info)
+        out["pbsv_upper_backward_error"] = dbackward(P, Xu, Bn)
+        del Pw, Pu, Lb, Xu
+        Gb = torch.where(inband, randn((n, n), f32, device, SEED + 65), 0.0)
+        Gw = slate.BandMatrix(n, n, kb, kb, snb, grid=grid, device=device, dtype=f32)
+        Gw.set_array(Gb)
+        X, info = step("gbsv_dist_s", lambda: slate.gbsv(Gw, dense(Bn, snb), sopts))
+        out["gbsv_info"], out["gbsv_backward_error"] = int(info), dbackward(Gb, X, Bn)
+        # a band wrapper holding kl subdiagonals keeps A (the pivots' wider
+        # multipliers would not fit); a dense wrapper takes the factored form
+        out["gbsv_band_wrapper_kept"] = bool(torch.equal(Gw.array, Gb))
+        Gd = dense(Gb, snb)
+        Xd, info = slate.gbsv(Gd, dense(Bn, snb), sopts, kl=kb, ku=kb)
+        out["gbsv_dense_info"] = int(info)
+        out["gbsv_dense_x_equal"] = bool(torch.equal(par.gather(Xd), par.gather(X)))
+        fac, _ = par.gbtrf_distributed(par.dense_to_band_general(Gb, kb, kb, extra=kb), grid,
+                                       kb, kb, nb=snb)
+        wr = fac.lub.shape[0] - 2 * kb
+        out["gbsv_factor_written_back"] = bool(torch.equal(
+            Gd.array, par.gather(_dense_of(fac.lub, grid, n, wr - 1, kb, extra=kb))))
+        del Gw, Gd, Xd, fac
+        Hw, Bw = herm(A), dense(Bn, snb)
+        X, info = step("hesv_dist_s", lambda: slate.hesv(Hw, Bw, sopts))
+        out["hesv_info"], out["hesv_backward_error"] = int(info), dbackward(A, X, Bn)
+        out["hesv_x_written_back"] = bool(torch.equal(Bw.array, par.gather(X)))
+        del A, Aw, Hw, P, Gb, X
+
+        # method_n f64: QR iteration (steqr_distributed's rotations) and bisection
+        m = sizes["method_n"]
+        A = sym_normal(m, f64, device, SEED + 66)
+        Aw = herm(A)
+        for method in ("qr", "bisection"):
+            mopts = {"block_size": nb, "method_eig": method}
+            lam, Z = step(f"heev_{method}_dist_s", lambda: slate.heev(Aw, mopts))
+            out[f"heev_{method}_gate"] = dgate_eig(A, lam, Z)
+
+        # the library's single-precision eigensolve at n <= 512 on the card
+        # (stedc._library_eigh): sterf of the chase's tridiagonal, and the
+        # fused, two-stage and grid-route values of phase 13's full-width
+        # matrix cut to sterf_n, each against float64 on the host
+        ns = sizes["sterf_n"]
+        A = sym_normal(ns, f32, device, SEED + 52)
+        band, _, _ = leig.he2hb(A, nb=leig.default_band_nb(ns))
+        d, e = leig.hb2st(band, kd=leig.default_band_nb(ns), want_vectors=False)
+        ref_t = torch.linalg.eigvalsh(leig._assemble_tridiag(d.double().cpu(),
+                                                             e.double().cpu()))
+        ref = torch.linalg.eigvalsh(A.double().cpu())
+        for key, lam, want in (
+                ("sterf", leig.sterf(d, e), ref_t),
+                ("heev_fused", slate.heev(A, want_vectors=False)[0], ref),
+                ("heev_two_stage", slate.heev(A, want_vectors=False, method="two_stage")[0],
+                 ref),
+                ("heev_grid", slate.heev(herm(A), opts, want_vectors=False)[0], ref)):
+            lam = lam.double().cpu()
+            out[f"small_{key}_vs_f64"] = float((lam - want).abs().max() / want.abs().max())
+            out[f"small_{key}_sumsq_err"] = abs(float((lam ** 2).sum() - (want ** 2).sum())) / float(
+                (want ** 2).sum())
+    for name, key in DIST_EIG_SINGLE.items():
+        times[f"{name}_single_s"] = single[key]
+    out["times"] = times
+    return out
+
+
+def check_dist_eig_path(res: dict, sizes: dict = DIST_EIG) -> None:
+    f32, f64 = torch.float32, torch.float64
+    n2, n, m = sizes["two_stage_n"], sizes["small_n"], sizes["method_n"]
+    require(res["heev_values_ascending"], "dist heev values not ascending")
+    require(res["svd_values_descending"], "dist singular values not descending")
+    require(res["heev_values_trace_err"] <= 50 * torch.finfo(f32).eps,
+            f"dist heev trace error {res['heev_values_trace_err']}")
+    for key in ("heev_values_sumsq_err", "heev_values_vs_single", "svd_values_sumsq_err",
+                "svd_values_vs_single"):
+        require(res[key] <= gate(f32, n2), f"dist {key} {res[key]:.3e} > {gate(f32, n2):.3e}")
+    g = gate(f32, n)
+    for key in ("heev_dc_gate", "heev_chase_dist_gate", "heev_chase_dist_vs_dc",
+                "heev_range_gate", "heev_range_vs_full", "hegv_residual",
+                "svd_vectors_gate", "svd_range_vs_full", "svd_range_residual"):
+        require(res[key] <= g, f"dist {key} {res[key]:.3e} > {g:.3e}")
+    for name in ("pbsv", "pbsv_upper", "gbsv", "gbsv_dense", "hesv"):
+        require(res[f"{name}_info"] == 0, f"dist {name} info {res[f'{name}_info']}")
+    for name in ("pbsv", "pbsv_upper", "gbsv", "hesv"):
+        require(res[f"{name}_backward_error"] <= g,
+                f"dist {name} backward error {res[f'{name}_backward_error']:.3e} > {g:.3e}")
+    for key in ("pbsv_x_written_back", "pbsv_factor_written_back", "gbsv_band_wrapper_kept",
+                "gbsv_dense_x_equal", "gbsv_factor_written_back", "hesv_x_written_back"):
+        require(res[key], f"dist {key} is False")
+    for key in ("heev_values_over_inf_norm", "svd_values_over_norm_bound",
+                "heev_dc_over_inf_norm"):
+        require(res[key] <= 1.0 + g, f"dist {key} {res[key]:.6f}: above the norm bound")
+    gs = gate(f32, sizes["sterf_n"])
+    for key in ("sterf", "heev_fused", "heev_two_stage", "heev_grid"):
+        for what in ("vs_f64", "sumsq_err"):
+            v = res[f"small_{key}_{what}"]
+            require(v <= gs, f"{key} at n = {sizes['sterf_n']} f32: {what} {v:.3e} > {gs:.3e}")
+    for method, gm in (("qr", 100.0 * torch.finfo(f64).eps * m),
+                       ("bisection", gate(f64, m))):
+        require(res[f"heev_{method}_gate"] <= gm,
+                f"dist heev {method} gate {res[f'heev_{method}_gate']:.3e} > {gm:.3e}")
+
+
+def full_dist_eig_path() -> dict:
+    """Phase 13 on a 1x1 NCCL grid, with the kernels' launch counters set to
+    0 just before and read just after (the gates' norms and the drivers'
+    scaling launch both kernels); phase 10's single-device steps are the
+    denominators."""
+    from slate_tpu_torch import parallel as par
+
+    grid = par.ProcessGrid.cached(1, 1, device="cuda")
+    w = sym_normal(256, torch.float32, "cuda", SEED)
+    par.heev_distributed(w, grid, nb=16)      # start the communicators
+    for axis in (par.ROW_AXIS, par.COL_AXIS, par.mesh.FLAT):
+        for op in ("sum", "max", "min"):
+            par.axis_allreduce(w[0], grid, axis, op)
+        par.axis_allgather(w[0], grid, axis)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in cn.LAUNCHES:
+        cn.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    res = dist_eig_path("cuda", single=SINGLE_EIG)
+    wall = time.perf_counter() - t0
+    launches = dict(cn.LAUNCHES)
+    say("dist_eig_card", nvidia_smi())
+    for key, v in res.items():
+        if key != "times":
+            say(f"dist_eig_{key}", v)
+    t = res["times"]
+    for name in DIST_EIG_SINGLE:
+        say(f"dist_eig_{name}_s", t[f"{name}_dist_s"])
+        say(f"dist_eig_{name}_single_s", t[f"{name}_single_s"])
+        say(f"dist_eig_{name}_over_single", t[f"{name}_dist_s"] / t[f"{name}_single_s"])
+    say("dist_eig_chase", "pipelined (eig._pipelined on a CUDA tensor) unless "
+        "chase_distributed")
+    say("dist_eig_wall_s", wall)
+    say("dist_eig_peak_memory_gib", torch.cuda.max_memory_allocated() / 2**30)
+    say("dist_eig_launches", json.dumps(launches))
+    check_dist_eig_path(res)
+    for name in ("col_reduce", "row_sums"):
+        require(launches[name] > 0, f"phase 13 did not launch {name}")
+    torch.cuda.synchronize()
+    par.mesh.destroy()
+    return launches
+
+
 # the serve chaos check's flight-recorder dump (git ignores this file)
 FLIGHT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "flight_records.json")
@@ -2323,7 +2686,8 @@ def main() -> int:
     cn.LAUNCHED.clear()
     paths = {"posv": full_path(), "general": full_general_path(),
              "serve": full_serve_path(), "eig": full_eig_path(),
-             "tester": full_tester_path(), "dist": full_dist_path()}
+             "tester": full_tester_path(), "dist": full_dist_path(),
+             "dist_eig": full_dist_eig_path()}
     path_shapes_phase(set(cn.LAUNCHED), stats)
     kernels = []
     for name in ("col_reduce", "row_sums"):
@@ -2333,7 +2697,8 @@ def main() -> int:
             "replaces": REPLACES[name],
             # the serve and eig paths launch neither kernel (their counts,
             # 0, are kept in launches_by_path); the tester's norm and
-            # gecondest rows and the distributed norms do
+            # gecondest rows, the distributed norms and phase 13's scaling
+            # and gates do
             "launches": sum(p[name] for p in paths.values()),
             "launches_by_path": {path: p[name] for path, p in paths.items()},
             "max_abs_err": stats[name]["max_abs_err"],

@@ -24,7 +24,7 @@ import torch
 from .core.exceptions import SlateError
 from .core.matrix import (BaseBandMatrix, BaseMatrix, BaseTrapezoidMatrix,
                           HermitianBandMatrix, HermitianMatrix, SymmetricMatrix,
-                          as_array, distribution_grid, write_back)
+                          as_array, dist_operand, distribution_grid, write_back)
 from .core.types import Diag, MethodGemm, MethodTrsm, Norm, NormScope, Options, Side, Uplo
 from .ops import blas3, elementwise, norms as norm_ops
 
@@ -184,8 +184,8 @@ def _trsm_grid(method, side, alpha, A, B, u, d, grid):
                                       wrap)
     from .parallel.solvers import trsmA_distributed, trsm_distributed
 
-    a = A.dist_array() if isinstance(A, BaseMatrix) else A
-    b = B.dist_array() if isinstance(B, BaseMatrix) else B
+    a = dist_operand(A)
+    b = dist_operand(B)
 
     def transposed(x):
         m, n = x.shape[-2:]

@@ -34,8 +34,11 @@ from . import grid as grid_funcs
 from .exceptions import SlateError, slate_assert
 from .types import Diag, GridOrder, Op, TileKind, Uplo
 
-_NOT_PORTED_GRID = ("this driver's distributed form over a >1-rank process grid is "
-                    "not ported yet (ROADMAP.md queue A item 15b)")
+
+#: the fewest ranks a grid must have for a wrapper to bind to it: below, the
+#: wrapper's storage stays whole and its drivers run on one device.
+#: ``chip_smoke.py`` lowers it to 1 to drive the grid routes on one card.
+BIND_MIN_RANKS = 2
 
 
 def resolve_device(device=None) -> torch.device:
@@ -164,10 +167,10 @@ class MatrixStorage:
         self.place_on_grid()
 
     def on_grid(self) -> bool:
-        """Whether this storage lives on a process grid of more than one rank
-        that this rank belongs to."""
+        """Whether this storage lives on a process grid of at least
+        :data:`BIND_MIN_RANKS` ranks that this rank belongs to."""
         g = self.grid
-        return (g is not None and getattr(g, "size", 1) > 1
+        return (g is not None and getattr(g, "size", 1) >= BIND_MIN_RANKS
                 and getattr(g, "rank", -1) >= 0)
 
     def place_on_grid(self) -> None:
@@ -748,7 +751,8 @@ class HermitianBandMatrix(BaseBandMatrix):
 
 
 def distribution_grid(*operands):
-    """The shared ProcessGrid (size > 1) attached to any wrapper operand, or None.
+    """The shared ProcessGrid (of at least :data:`BIND_MIN_RANKS` ranks)
+    attached to any wrapper operand, or None.
 
     Drivers consult this to route to the ``parallel`` implementations — the
     reference consuming ``tileRank``/``tileDevice`` installed at matrix
@@ -758,20 +762,12 @@ def distribution_grid(*operands):
     for op in operands:
         if isinstance(op, BaseMatrix):
             og = op.storage.grid
-            if og is not None and getattr(og, "size", 1) > 1:
+            if og is not None and getattr(og, "size", 1) >= BIND_MIN_RANKS:
                 if g is not None and og is not g:
                     raise SlateError(
                         "operands are distributed on different process grids")
                 g = og
     return g
-
-
-def refuse_grid(grid) -> None:
-    """Raise for a process grid of more than one rank reaching a driver whose
-    distributed form is not ported yet (item 15b: the distributed eigenvalue,
-    SVD, band and indefinite drivers)."""
-    if grid is not None and getattr(grid, "size", 1) > 1:
-        raise SlateError(_NOT_PORTED_GRID)
 
 
 def as_array(A, device=None) -> torch.Tensor:
@@ -784,6 +780,13 @@ def as_array(A, device=None) -> torch.Tensor:
 
         A = gather(A)           # a distributed result handed to a local driver
     return to_tensor(A, device)
+
+
+def dist_operand(X):
+    """The operand a distributed driver takes: a wrapper's
+    :meth:`~BaseMatrix.dist_array` (its block-layout DTensor when it lives
+    whole on a grid), or a tensor as it is."""
+    return X.dist_array() if isinstance(X, BaseMatrix) else X
 
 
 def write_back(A, value: torch.Tensor):

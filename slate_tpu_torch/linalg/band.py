@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.exceptions import SlateError, slate_assert
-from ..core.matrix import (BaseBandMatrix, as_array, distribution_grid, refuse_grid,
+from ..core.matrix import (BaseBandMatrix, as_array, dist_operand, distribution_grid,
                            write_back)
 from ..core.types import Diag, Options, Side, Uplo
 from ..robust import first_bad_index
@@ -314,14 +314,45 @@ def pbtrs(L, B, opts=None, kd=None):
 
 def pbsv(A, B, opts=None, uplo=None, kd=None):
     """Solve an SPD band system (src/pbsv.cc): pbtrf + pbtrs.
-    Returns (X, info)."""
-    refuse_grid(distribution_grid(A, B))
+    Returns (X, info).  With a grid-bound operand the windowed factorization
+    runs on compact storage over the grid
+    (:func:`..parallel.band_dist.pbsv_distributed`); the band comes off the
+    wrapper's blocks without a gather, and the factor L writes back into A
+    shard by shard (a later pbtrs on the wrapper sees L)."""
     slate_assert(isinstance(A, BaseBandMatrix) or kd is not None,
                  "pbsv on a raw array needs kd=")
     kd_v = (getattr(A, "kd", max(A.kl, A.ku)) if isinstance(A, BaseBandMatrix)
             else int(kd))
+    grid = distribution_grid(A, B)
+    if grid is not None:
+        return _pbsv_grid(A, B, opts, uplo, kd_v, grid)
     L, info = pbtrf(A, opts, uplo, kd)
     return pbtrs(as_array(L), B, opts, kd=kd_v), info
+
+
+def _pbsv_grid(A, B, opts, uplo, kd: int, grid):
+    from ..parallel.band_dist import (_compact_of, _dense_of, pbtrf_distributed,
+                                      pbtrs_distributed)
+
+    opts = Options.make(opts)
+    a = dist_operand(A)
+    n = a.shape[-1]
+    u = A.uplo if isinstance(A, BaseBandMatrix) else Uplo.from_string(uplo or "lower")
+    if u == Uplo.Upper:
+        # the lower band of A^H: Ab[j, i] = conj(A[i, i+j]) from the upper band
+        G = _compact_of(a, grid, 0, kd)
+        j = torch.arange(kd + 1, device=G.device)[:, None]
+        i = torch.arange(n, device=G.device)[None, :]
+        c = i + j
+        Ab = torch.where(c < n, G[kd - j, c.clamp(max=n - 1)].conj(),
+                         torch.zeros((), dtype=G.dtype, device=G.device))
+    else:
+        Ab = _compact_of(a, grid, kd, 0)
+    with trace_block("pbsv", n=n, kd=kd, target="distributed"):
+        Lb, info = pbtrf_distributed(Ab, grid, kd, nb=opts.block_size)
+        write_back(A, _dense_of(Lb, grid, n, kd, 0))
+        x = pbtrs_distributed(Lb, dist_operand(B), grid, kd, nb=opts.block_size)
+    return write_back(B, x), info
 
 
 # ---------------------------------------------------------------------------
@@ -420,7 +451,37 @@ def gbtrs(fac: BandLU, B, opts=None):
 
 def gbsv(A, B, opts=None, kl=None, ku=None):
     """Solve a general band system (src/gbsv.cc): gbtrf + gbtrs.
-    Returns (X, info)."""
-    refuse_grid(distribution_grid(A, B))
+    Returns (X, info).  With a grid-bound operand the windowed band LU runs
+    on compact storage over the grid
+    (:func:`..parallel.band_dist.gbsv_distributed`), and its factored form
+    writes back into A shard by shard — except into a band wrapper whose
+    storage holds only kl subdiagonals, where pivoting's wider multipliers
+    (up to wr - 1 below the diagonal) would be truncated; the solve uses the
+    factor either way."""
+    grid = distribution_grid(A, B)
+    if grid is not None:
+        return _gbsv_grid(A, B, opts, kl, ku, grid)
     fac, info = gbtrf(A, opts, kl, ku)
     return gbtrs(fac, B, opts), info
+
+
+def _gbsv_grid(A, B, opts, kl, ku, grid):
+    from ..parallel.band_dist import (_compact_of, _dense_of, gbtrf_distributed,
+                                      gbtrs_distributed)
+
+    opts = Options.make(opts)
+    if isinstance(A, BaseBandMatrix):
+        kl, ku = A.kl, A.ku
+    slate_assert(kl is not None and ku is not None,
+                 "band routines need a Band matrix or explicit kl=/ku=")
+    kl, ku = int(kl), int(ku)
+    a = dist_operand(A)
+    n = a.shape[-1]
+    with trace_block("gbsv", n=n, kl=kl, ku=ku, target="distributed"):
+        fac, info = gbtrf_distributed(_compact_of(a, grid, kl, ku, extra=kl), grid,
+                                      kl, ku, nb=opts.block_size)
+        wr = fac.lub.shape[0] - kl - ku
+        if not (isinstance(A, BaseBandMatrix) and A.kl < wr - 1):
+            write_back(A, _dense_of(fac.lub, grid, n, wr - 1, ku, extra=kl))
+        x = gbtrs_distributed(fac, dist_operand(B), grid)
+    return write_back(B, x), info

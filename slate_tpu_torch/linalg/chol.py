@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from ..core.matrix import (BaseMatrix, HermitianMatrix, SymmetricMatrix, as_array,
-                           distribution_grid, torch_dtype, tri_to_full, write_back)
+                           dist_operand, distribution_grid, torch_dtype, tri_to_full,
+                           write_back)
 from ..core.types import Options, Target, Uplo
 from ..obs import instrument
 from ..robust import (RetryPolicy, Rung, SolveReport, first_bad_index,
@@ -287,7 +288,7 @@ def _potrs_grid(A, B, grid, lower: bool):
     else:
         L = transpose_local(torch.where(rows <= cols, F, zero), grid, n, n, conj=True)
     L = wrap(L, grid, (n, n))
-    b = B.dist_array() if isinstance(B, BaseMatrix) else B
+    b = dist_operand(B)
     Y = trsm_distributed(L, b, grid, lower=True, conj_trans=False)
     return trsm_distributed(L, Y, grid, lower=True, conj_trans=True)
 

@@ -38,20 +38,38 @@ import torch
 
 from ..core.exceptions import NumericalError, SlateError, slate_assert
 from ..core.matrix import (HermitianMatrix, SymmetricMatrix, as_array,
-                           distribution_grid, refuse_grid, write_back)
+                           distribution_grid, write_back)
 from ..core.types import MethodEig, Op, Options, Side, Uplo
 from ..obs import instrument
 from ..robust import inject
 from ..utils.trace import Timers, record_phases, trace_block
 from . import householder as hh
 from .chol import _full_spd, potrf
-from .stedc import _assemble_tridiag
+from .stedc import _assemble_tridiag, _library_eigh
 
 
 def _full_herm(A, uplo):
     if isinstance(A, (HermitianMatrix, SymmetricMatrix)):
         return A.full_array()
     return _full_spd(A, uplo or Uplo.Lower)
+
+
+def _grid_herm(A, uplo, grid):
+    """The full Hermitian operand of a grid-bound wrapper, in the block
+    layout: its stored triangle and the mirrored one, assembled shard by
+    shard (``distribute.full_hermitian``), never gathered."""
+    from ..parallel.distribute import full_hermitian
+
+    half = isinstance(A, (HermitianMatrix, SymmetricMatrix))
+    lower = Uplo.from_string(A.uplo if half else (uplo or Uplo.Lower)) == Uplo.Lower
+    return full_hermitian(A.dist_array(), grid, lower,
+                          herm=not isinstance(A, SymmetricMatrix))
+
+
+def _method_name(opts: Options) -> str:
+    """The distributed drivers' tridiagonal method of ``opts.method_eig``."""
+    return {MethodEig.QR: "qr", MethodEig.Bisection: "bisection"}.get(
+        opts.method_eig, "dc")
 
 
 def _symmetrize(a: torch.Tensor) -> torch.Tensor:
@@ -105,13 +123,29 @@ def heev(A, opts=None, uplo=None, want_vectors: bool = True,
     The call stays asynchronous on the card: its phases time the host's
     launches, unless tracing is on (``trace.on()``), when each phase ends in
     a device sync and the map is the device's phase split
-    (:class:`~..utils.trace.Timers`)."""
+    (:class:`~..utils.trace.Timers`).
+
+    A wrapper bound to a grid of more than one rank runs the distributed
+    pipeline (:func:`..parallel.heev_distributed`: stage 1 on block rows, the
+    band on every rank, the chase replicated or, with ``chase_distributed``,
+    segment-parallel) whatever ``method``; Z then comes back as a DTensor in
+    the row layout."""
     opts = Options.make(opts)
     timers = Timers()
-    refuse_grid(distribution_grid(A))
+    grid = distribution_grid(A)
+    if grid is not None:
+        from ..parallel import heev_distributed
+
+        a = inject("heev", _grid_herm(A, uplo, grid))
+        lam, z = heev_distributed(
+            a, grid, nb=default_band_nb(a.shape[-1], opts), want_vectors=want_vectors,
+            method_eig=_method_name(opts), chase_pipeline=chase_pipeline,
+            chase_distributed=chase_distributed)
+        return (lam, z) if want_vectors else (lam, None)
     slate_assert(not chase_distributed,
-                 "chase_distributed requires a grid-bound wrapper, and "
-                 "distributed execution is not ported")
+                 "chase_distributed requires a grid-bound wrapper "
+                 "(Matrix.from_array(..., grid=...)); the single-device "
+                 "two-stage path has nothing to distribute")
     a = inject("heev", _full_herm(A, uplo))
     n = a.shape[-1]
     timers.device = a.device
@@ -143,10 +177,7 @@ def heev(A, opts=None, uplo=None, want_vectors: bool = True,
         else:
             with timers.time("heev::solve"):
                 a = _symmetrize(a)
-                if want_vectors:
-                    lam, z = torch.linalg.eigh(a)
-                else:
-                    lam, z = torch.linalg.eigvalsh(a), None
+                lam, z = _library_eigh(a, want_vectors)
         with timers.time("heev::rescale"):
             lam = lam * factor
     heev.timers = timers
@@ -165,16 +196,24 @@ def heev_range(A, opts=None, uplo=None, *, il: int = 0,
     wanted eigenvalues, ``stein`` for their vectors, and the chase
     back-transform applied to the thin (n, k) block by the reverse sweep
     accumulation (the (n, n) Q2 is never formed).  Returns ``(lam, Z)`` with
-    lam (k,) ascending, Z (n, k) or None."""
+    lam (k,) ascending, Z (n, k) or None.  A grid-bound wrapper runs
+    :func:`..parallel.heev_range_distributed` (Z a row-layout DTensor)."""
     opts = Options.make(opts)
-    refuse_grid(distribution_grid(A))
-    a = _full_herm(A, uplo)
+    grid = distribution_grid(A)
+    a = _grid_herm(A, uplo, grid) if grid is not None else _full_herm(A, uplo)
     n = a.shape[-1]
     if iu is None:
         iu = n
     slate_assert(0 <= il < iu <= n, f"index range [{il}, {iu}) invalid for n={n}")
+    if grid is not None:
+        from ..parallel import heev_range_distributed
+
+        lam, z = heev_range_distributed(a, grid, il, iu, nb=default_band_nb(n, opts),
+                                        want_vectors=want_vectors,
+                                        chase_pipeline=chase_pipeline)
+        return (lam, z) if want_vectors else (lam, None)
     if n < 8:
-        lam, z = torch.linalg.eigh(_symmetrize(a))
+        lam, z = _library_eigh(_symmetrize(a))
         return (lam[il:iu], z[:, il:iu]) if want_vectors else (lam[il:iu], None)
     from .sturm import stein, sterf_bisect
 
@@ -203,13 +242,19 @@ def eig_count(A, vl, vu, opts=None, uplo=None):
     (LAPACK stebz range='V' counting).  Endpoints coinciding with an
     eigenvalue are eps-sensitive: pick them in spectral gaps.  Returns an
     int32 scalar tensor.  The chase is the default of :func:`hb2st`
-    (pipelined on a CUDA tensor, sequential elsewhere)."""
+    (pipelined on a CUDA tensor, sequential elsewhere).  A grid-bound wrapper
+    is refused, as in the JAX package: the Sturm count has no distributed
+    form."""
     opts = Options.make(opts)
-    refuse_grid(distribution_grid(A))
+    slate_assert(distribution_grid(A) is None,
+                 "eig_count has no distributed pipeline: the Sturm-count "
+                 "stage is replicated-only.  Gather the wrapper to a plain "
+                 "array explicitly (eig_count(A.array, ...)) to accept the "
+                 "single-device cost, or use heev_range for subset spectra.")
     a = _full_herm(A, uplo)
     n = a.shape[-1]
     if n < 8:
-        lam = torch.linalg.eigvalsh(_symmetrize(a))
+        lam, _ = _library_eigh(_symmetrize(a), want_vectors=False)
         return ((lam >= vl) & (lam < vu)).sum().to(torch.int32)
     from .sturm import sturm_count_interval
 
@@ -705,7 +750,8 @@ def sterf(d, e, opts=None):
     library eigvalsh at or below it."""
     d = as_array(d)
     if d.shape[-1] <= _STEV_DENSE_MAX:
-        return torch.linalg.eigvalsh(_assemble_tridiag(d, as_array(e, device=d.device)))
+        return _library_eigh(_assemble_tridiag(d, as_array(e, device=d.device)),
+                             want_vectors=False)[0]
     from .sturm import sterf_bisect
 
     return sterf_bisect(d, e)

@@ -26,8 +26,13 @@ import torch
 
 
 def _abs2(x: torch.Tensor) -> torch.Tensor:
-    """|x|² elementwise (x·x for real data: the same value in one launch)."""
-    return x.abs() ** 2 if x.is_complex() else x * x
+    """|x|² elementwise: x·x for real data; re² + im² for complex data, whose
+    correctly rounded products and sum give the same bits whatever the
+    tensor's size (the vectorized complex abs does not: a chase front batched
+    alone and batched with others would round apart)."""
+    if x.is_complex():
+        return x.real * x.real + x.imag * x.imag
+    return x * x
 
 
 def _reflector(alpha: torch.Tensor, sigma2: torch.Tensor, x: torch.Tensor):

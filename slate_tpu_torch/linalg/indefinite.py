@@ -19,12 +19,12 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.matrix import as_array, distribution_grid, refuse_grid, write_back
+from ..core.matrix import as_array, dist_operand, distribution_grid, write_back
 from ..core.types import Options
 from ..robust import SolveReport, inject
 from ..utils.trace import trace_block
 from .band import BandLU, gbtrf, gbtrs
-from .eig import _full_herm
+from .eig import _full_herm, _grid_herm
 from .lu import _device_perm, _lu_factor
 
 __all__ = ["HermitianFactors", "hetrf", "hetrs", "hesv", "sytrf", "sytrs", "sysv"]
@@ -139,11 +139,22 @@ def hetrs(fac: HermitianFactors, B, opts=None):
 def hesv(A, B, opts=None, uplo=None):
     """Solve a Hermitian-indefinite system (src/hesv.cc): hetrf + hetrs.
     Returns (X, info); with ``Options(solve_report=True)``,
-    (X, info, SolveReport)."""
+    (X, info, SolveReport), on both the single-device and the grid paths.
+    A grid-bound operand runs the distributed CA-Aasen
+    (:func:`..parallel.hesv_distributed`) on the full Hermitian matrix,
+    assembled shard by shard."""
     opts_ = Options.make(opts)
-    refuse_grid(distribution_grid(A, B))
-    fac, info = hetrf(A, opts, uplo)
-    x = hetrs(fac, B, opts)
+    grid = distribution_grid(A, B)
+    if grid is not None:
+        from ..parallel import hesv_distributed
+
+        a = _grid_herm(A, uplo, grid)
+        b = dist_operand(B)
+        x, info = hesv_distributed(a, b, grid, nb=min(opts_.block_size, a.shape[-1]))
+        x = write_back(B, x)
+    else:
+        fac, info = hetrf(A, opts, uplo)
+        x = hetrs(fac, B, opts)
     if opts_.solve_report:
         report = SolveReport(routine="hesv", info=int(info),
                              precision_used=str(as_array(x).dtype).removeprefix("torch."),

@@ -50,8 +50,8 @@ import numpy as np
 import torch
 
 from ..core.exceptions import SlateError, slate_assert
-from ..core.matrix import (BaseMatrix, as_array, distribution_grid, to_tensor,
-                           torch_dtype, write_back)
+from ..core.matrix import (BaseMatrix, as_array, dist_operand, distribution_grid,
+                           to_tensor, torch_dtype, write_back)
 from ..core.types import MethodLU, Options, Target
 from ..obs import instrument
 from ..robust import (RetryPolicy, Rung, SolveReport, active, first_bad_index,
@@ -552,7 +552,7 @@ def getrs(LU, perm, B, opts=None, trans=False):
         # a factor bound to a >1-rank grid: the two sweeps on its block layout
         from ..parallel import getrs_distributed
 
-        b = B.dist_array() if isinstance(B, BaseMatrix) else B
+        b = dist_operand(B)
         return write_back(B, getrs_distributed(LU.dist_array(), perm, b, grid))
     lu_ = as_array(LU)
     b = as_array(B, device=lu_.device)

@@ -23,6 +23,13 @@ What differs in eager PyTorch:
   whose first sweep trips it.
 * ``argsort`` is stable (``torch.argsort(stable=True)``, as ``jnp.argsort``
   is), and ``lax.cummax`` is ``torch.cummax``.
+* With a ``grid`` the recursion runs on every rank (it needs the same (d, e)
+  bits everywhere, which the distributed drivers guarantee); each merge of at
+  least ``_DIST_MERGE_MIN`` shards its secular bisection over the brackets
+  (:mod:`..parallel.secular`) and its two basis-update gemms over the grid
+  (:func:`..parallel.summa.gemm_padded`), and gathers the merged basis, so
+  every rank holds the same Q.  The gates' branches read only values that
+  are the same on every rank, so every rank makes the same collectives.
 
 ``stedc(d, e, Z)`` matches steqr's contract: (ascending eigenvalues, Z @ Q).
 """
@@ -33,12 +40,15 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.matrix import as_array, refuse_grid
+from ..core.matrix import as_array
 
 _BASE_N = 32       # below this, one library eigh is faster than a merge
 _BISECT_ITERS = 90  # geometric descent to tiny roots + full mantissa refinement
 # elements of one (m, chunk) temporary of the secular bisection
 _SECULAR_BUFFER = 1 << 26
+# merges below this size gain nothing from the grid (collective latency
+# dwarfs the gemm); the top log2(n/threshold) merges carry ~all the flops
+_DIST_MERGE_MIN = 1024
 
 
 def _secular_f(d, z2, rho, pole, off):
@@ -130,8 +140,9 @@ def _gram_off(G: torch.Tensor) -> float:
 def _merge(d1, Q1, d2, Q2, rho_raw, grid=None):
     """One D&C merge (stedc_merge + stedc_z_vector + stedc_secular +
     stedc_solve): the rank-one update D + rho z z^T in the blkdiag(Q1, Q2)
-    basis.  Host syncs: 1, or 2 when the first repair sweep runs."""
-    refuse_grid(grid)
+    basis.  Host syncs: 1, or 2 when the first repair sweep runs.  With
+    ``grid`` the secular bisection and the two basis-update gemms run over
+    the grid (module docstring)."""
     dt = d1.dtype
     n1 = d1.shape[0]
     m = n1 + d2.shape[0]
@@ -143,7 +154,12 @@ def _merge(d1, Q1, d2, Q2, rho_raw, grid=None):
     d = d[order]
     z = z[order]
     d, z2, scale, eps = _deflate(d, z, rho)
-    t, s, lam = _secular_roots(d, z2, rho)
+    if grid is not None:
+        from ..parallel.secular import secular_roots_sharded
+
+        t, s, lam = secular_roots_sharded(d, z2, rho, grid)
+    else:
+        t, s, lam = _secular_roots(d, z2, rho)
 
     # Gu's corrected |z~_i|^2 = prod_j (lam_j - d_i) / prod_{j != i} (d_j - d_i)
     M = lam[None, :] - d[:, None]                     # (i, j): lam_j - d_i
@@ -197,9 +213,48 @@ def _merge(d1, Q1, d2, Q2, rho_raw, grid=None):
     # diagonal blocks separately (laed3's structure)
     Vp = torch.empty_like(V)
     Vp[order] = V
+    if grid is not None:
+        return lam, torch.cat([_gemm_grid(Q1, Vp[:n1], grid),
+                               _gemm_grid(Q2, Vp[n1:], grid)], dim=0)
     Ztop = torch.matmul(Q1, Vp[:n1])
     Zbot = torch.matmul(Q2, Vp[n1:])
     return lam, torch.cat([Ztop, Zbot], dim=0)
+
+
+def _gemm_grid(a, b, grid):
+    """a @ b over the grid for operands that are the same on every rank: each
+    rank multiplies its block (SUMMA), and the product is gathered back."""
+    from ..parallel.distribute import gather
+    from ..parallel.summa import gemm_padded
+
+    return gather(gemm_padded(a, b, grid))
+
+
+# PyTorch's cuSOLVER route for a Hermitian matrix of n <= 512 loses accuracy
+# in single precision: 2.0e-4 · max|λ| at n = 512 f32, where the gates allow
+# 50·eps·√n = 1.35e-4, against 3e-9 in double and 3e-7 at n = 513 (H100 80GB
+# HBM3, torch 2.11 + CUDA 12.8; ``chip_eigh_sweep.py``).  Such calls solve in
+# double on the card; chip_smoke.py's phase 13 holds sterf and heev at
+# n = 512 f32 to float64.
+_LIB_EIGH_WIDEN_MAX = 512
+
+
+def _library_eigh(a: torch.Tensor, want_vectors: bool = True):
+    """``torch.linalg.eigh(a)`` (or ``eigvalsh`` without vectors): (lam, Z or
+    None).  A single-precision CUDA operand of n <= ``_LIB_EIGH_WIDEN_MAX``
+    is solved in double and the result cast back; everything else goes to the
+    library as it is."""
+    widen = (a.is_cuda and a.dtype in (torch.float32, torch.complex64)
+             and a.shape[-1] <= _LIB_EIGH_WIDEN_MAX)
+    x = a.to(torch.complex128 if a.is_complex() else torch.float64) if widen else a
+    if want_vectors:
+        lam, z = torch.linalg.eigh(x)
+    else:
+        lam, z = torch.linalg.eigvalsh(x), None
+    if widen:
+        lam = lam.to(a.real.dtype)
+        z = None if z is None else z.to(a.dtype)
+    return lam, z
 
 
 def _assemble_tridiag(d, e) -> torch.Tensor:
@@ -210,17 +265,18 @@ def _assemble_tridiag(d, e) -> torch.Tensor:
     return T
 
 
-def _stedc_rec(d, e) -> Tuple[torch.Tensor, torch.Tensor]:
+def _stedc_rec(d, e, grid=None) -> Tuple[torch.Tensor, torch.Tensor]:
     n = d.shape[0]
     if n <= _BASE_N:
-        return torch.linalg.eigh(_assemble_tridiag(d, e))
+        return _library_eigh(_assemble_tridiag(d, e))
     mid = n // 2
     rho = e[mid - 1]
     d1 = torch.cat([d[: mid - 1], (d[mid - 1] - rho)[None]])
     d2 = torch.cat([(d[mid] - rho)[None], d[mid + 1:]])
-    lam1, Z1 = _stedc_rec(d1, e[: mid - 1])
-    lam2, Z2 = _stedc_rec(d2, e[mid:])
-    return _merge(lam1, Z1, lam2, Z2, rho)
+    lam1, Z1 = _stedc_rec(d1, e[: mid - 1], grid)
+    lam2, Z2 = _stedc_rec(d2, e[mid:], grid)
+    return _merge(lam1, Z1, lam2, Z2, rho,
+                  grid if n >= _DIST_MERGE_MIN else None)
 
 
 def stedc(d, e, Z: Optional[torch.Tensor] = None, opts=None, grid=None):
@@ -228,10 +284,11 @@ def stedc(d, e, Z: Optional[torch.Tensor] = None, opts=None, grid=None):
 
     Returns (ascending eigenvalues, Q), premultiplied by ``Z`` when given.
     The off-diagonal may be signed: a diagonal similarity normalizes it
-    nonnegative first (signs folded into Q).  A ``grid`` of more than one
-    device raises :class:`SlateError` (not ported).  Host syncs: one per
-    merge (:func:`_merge`), about n / 16 in all."""
-    refuse_grid(grid)
+    nonnegative first (signs folded into Q).  ``grid`` (a ProcessGrid):
+    merges at and above ``_DIST_MERGE_MIN`` run their secular solve and
+    basis-update gemms over it, as does the final Z @ Q product; every rank
+    must call with the same (d, e) and gets the same (lam, Q).  Host syncs:
+    one per merge (:func:`_merge`), about n / 16 in all."""
     d = as_array(d)
     e = as_array(e, device=d.device)
     n = d.shape[-1]
@@ -242,13 +299,15 @@ def stedc(d, e, Z: Optional[torch.Tensor] = None, opts=None, grid=None):
         one = torch.ones((1,), dtype=d.dtype, device=d.device)
         sgn = torch.where(e < 0, -one, one)
         S = torch.cat([one, torch.cumprod(sgn, 0)])
-        lam, Q = _stedc_rec(d, e.abs())
+        lam, Q = _stedc_rec(d, e.abs(), grid)
         Q = S[:, None] * Q
     else:
         lam, Q = d, torch.ones((1, 1), dtype=d.dtype, device=d.device)
     if Z is not None:
         Zc = as_array(Z, device=d.device)
-        Q = torch.matmul(Zc.to(Q.dtype) if Zc.dtype != Q.dtype else Zc, Q)
+        Zc = Zc.to(Q.dtype) if Zc.dtype != Q.dtype else Zc
+        Q = (_gemm_grid(Zc, Q, grid) if grid is not None and n >= _DIST_MERGE_MIN
+             else torch.matmul(Zc, Q))
     return lam, Q
 
 

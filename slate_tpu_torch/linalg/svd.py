@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..core.exceptions import slate_assert
-from ..core.matrix import as_array, distribution_grid, refuse_grid
+from ..core.matrix import as_array, distribution_grid
 from ..core.types import MethodSVD, Options
 from ..obs import instrument
 from ..robust import inject
@@ -59,13 +59,27 @@ def svd(A, opts=None, want_u: bool = True, want_vt: bool = True,
     Returns (S descending, U or None, VT or None).  Tall/wide inputs take the
     QR/LQ pre-step (svd.cc:224+) on the fused path.  ``method="two_stage"``
     runs ge2tb -> tb2bd -> bdsqr -> back-transforms; ``MethodSVD.Bisection``
-    takes that path on its own (bisection needs a bidiagonal to bisect)."""
+    takes that path on its own (bisection needs a bidiagonal to bisect).  A
+    wrapper bound to a grid of more than one rank runs
+    :func:`..parallel.svd_distributed` whatever ``method`` (U a row-layout
+    and VT a column-layout DTensor)."""
     opts = Options.make(opts)
     timers = Timers()
-    refuse_grid(distribution_grid(A))
+    grid = distribution_grid(A)
+    if grid is not None:
+        from ..parallel import svd_distributed
+
+        a = inject("svd", A.dist_array())
+        S, U, VT = svd_distributed(a, grid, nb=default_band_nb(min(a.shape[-2:]), opts),
+                                   want_vectors=want_u or want_vt,
+                                   chase_pipeline=chase_pipeline,
+                                   method_svd=str(opts.method_svd),
+                                   chase_distributed=chase_distributed)
+        return S, (U if want_u else None), (VT if want_vt else None)
     slate_assert(not chase_distributed,
-                 "chase_distributed requires a grid-bound wrapper, and "
-                 "distributed execution is not ported")
+                 "chase_distributed requires a grid-bound wrapper "
+                 "(Matrix.from_array(..., grid=...)); the single-device "
+                 "two-stage path has nothing to distribute")
     a = inject("svd", as_array(A))
     timers.device = a.device    # one sync per phase on the card under trace.on()
     m, n = a.shape[-2:]
@@ -164,9 +178,19 @@ def svd_range(A, opts=None, *, il: int = 0, iu: Optional[int] = None,
     on the Golub–Kahan form -> ``stein`` for the interleaved vectors -> both
     chase back-transforms on the thin blocks -> thin stage-1 back-transforms.
     Returns ``(S, U, VT)`` with S (j,) descending, U (m, j), VT (j, n)
-    (None without vectors); accuracy is bisection's absolute O(eps·σ_max)."""
+    (None without vectors); accuracy is bisection's absolute O(eps·σ_max).
+    A grid-bound wrapper runs :func:`..parallel.svd_range_distributed`."""
     opts = Options.make(opts)
-    refuse_grid(distribution_grid(A))
+    grid = distribution_grid(A)
+    if grid is not None:
+        from ..parallel import svd_range_distributed
+
+        a = A.dist_array()
+        kmin = min(a.shape[-2:])
+        return svd_range_distributed(a, grid, il, kmin if iu is None else iu,
+                                     nb=default_band_nb(kmin, opts),
+                                     want_vectors=want_vectors,
+                                     chase_pipeline=chase_pipeline)
     a = as_array(A)
     m, n = a.shape[-2:]
     if m < n:

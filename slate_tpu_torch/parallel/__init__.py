@@ -10,12 +10,12 @@ replicated), and every driver is a shard-local body with explicit
 collectives over the grid's dims (:mod:`.collectives`: all-reduce,
 all-gather, point-to-point) — NCCL on the card, gloo on the CPU.
 
-Ported here: the grid, the placement helpers, SUMMA and the BLAS-3, the
-distributed norms, the Cholesky / LU / RBT / QR / LQ solvers, the inverses and
-condition estimates, and the batched solvers.  The distributed eigenvalue,
-SVD, band and indefinite drivers (``band_dist``, ``indefinite_dist``, the rest
-of ``eig_dist``, ``chase_dist``, ``secular``) are not ported yet (ROADMAP.md
-queue A item 15b).
+Every module of the JAX package's ``parallel`` has its counterpart here: the
+grid, the placement helpers, SUMMA and the BLAS-3, the distributed norms, the
+Cholesky / LU / RBT / QR / LQ solvers, the inverses and condition estimates,
+the batched solvers, the two-stage eigenvalue / SVD / generalized drivers
+with the segment-parallel chases and the sharded secular solve, and the band
+and Hermitian-indefinite solvers on compact storage.
 """
 
 from .mesh import COL_AXIS, ProcessGrid, ROW_AXIS
@@ -29,7 +29,11 @@ from .summa import (gemm_allgather, gemm_distributed, gemm_padded, gemm_ring,
 from .blas3_dist import (gbmm_distributed, hbmm_distributed, hemm_distributed,
                          her2k_distributed, herk_distributed, symm_distributed,
                          syr2k_distributed, syrk_distributed, trmm_distributed)
-from .eig_dist import col_norms_distributed, norm_distributed
+from .eig_dist import (col_norms_distributed, ge2tb_distributed, he2hb_distributed,
+                       heev_distributed, heev_range_distributed, hegv_distributed,
+                       norm_distributed, steqr_distributed, svd_distributed,
+                       svd_range_distributed, unmtr_he2hb_distributed)
+from .chase_dist import hb2st_chase_distributed, tb2bd_chase_distributed
 from .pivot import (exchange_rows, extract_rows, partialpiv_piv, scatter_rows,
                     select_pivots, step_permutation, tournament_piv)
 from .solvers import (cholqr_distributed, gels_cholqr_distributed,
@@ -47,4 +51,10 @@ from .qr_dist import (gelqf_distributed, gels_caqr_distributed,
 from .inverse import (gecondest_distributed, getri_distributed,
                       pocondest_distributed, potri_distributed,
                       trcondest_distributed, trtri_distributed, trtrm_distributed)
+from .band_dist import (band_general_to_dense, band_lower_to_dense,
+                        dense_to_band_general, dense_to_band_lower, gbsv_distributed,
+                        gbtrf_distributed, gbtrs_distributed, pbsv_distributed,
+                        pbtrf_distributed, pbtrs_distributed, tbsm_distributed)
+from .indefinite_dist import (HermitianFactorsDist, hesv_distributed,
+                              hetrf_distributed, hetrs_distributed)
 from .batched import gesv_batched_distributed, posv_batched_distributed

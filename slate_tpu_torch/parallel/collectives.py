@@ -18,6 +18,7 @@ listBcast (root tile)  ``axis_bcast`` (sum of a masked contribution)
 panel gather           ``axis_allgather``
 listReduce             ``axis_allreduce`` / ``axis_reduce_scatter``
 lookahead panel sends  ``ring_shift`` (point to point)
+chase boundary sends   ``neighbor_exchange`` (point to point, not cyclic)
 =====================  ==============================================
 """
 
@@ -176,3 +177,37 @@ def ring_shift(x: torch.Tensor, grid, axis, shift: int = 1) -> torch.Tensor:
     got = _send_recv(w, ranks[(me - shift) % size], torch.empty_like(w),
                      ranks[(me + shift) % size], group)
     return torch.view_as_complex(got) if cplx else got
+
+
+def _members(mesh, axis) -> List[int]:
+    """World ranks of the members of ``axis`` that hold this rank, in axis
+    order (FLAT: p-major)."""
+    if tuple(_dims(axis)) == FLAT:
+        return [int(r) for r in mesh.mesh.flatten()]
+    return dist.get_process_group_ranks(mesh.get_group(axis))
+
+
+def neighbor_exchange(to_right, to_left, grid, axis=FLAT):
+    """Non-cyclic neighbour exchange along ``axis`` (the JAX package's
+    ``ppermute`` over the pairs (i, i+1) and (i+1, i)): member i sends
+    ``to_right`` to member i+1 and ``to_left`` to member i-1, and returns
+    ``(from_left, from_right)``, shaped like ``to_right`` and ``to_left``
+    (every member sends the same shapes).  An end member has no partner on
+    one side: it sends nothing there and gets zeros, so member 0 receives
+    nothing from the left and the last member nothing from the right.  Both
+    directions ride one batch of point-to-point ops, so neighbours cannot
+    deadlock."""
+    mesh = _mesh(grid)
+    ranks = _members(mesh, axis)
+    me = axis_index(mesh, axis)
+    sends, recvs, got = [], [], []
+    for peer, send, like in ((me - 1, to_left, to_right), (me + 1, to_right, to_left)):
+        if 0 <= peer < len(ranks):
+            buf = torch.empty_like(_wire(like))
+            sends.append((_wire(send), ranks[peer]))
+            recvs.append((buf, ranks[peer]))
+            got.append(torch.view_as_complex(buf) if like.is_complex() else buf)
+        else:
+            got.append(torch.zeros_like(like))
+    _exchange(sends, recvs)
+    return got[0], got[1]

@@ -4,10 +4,11 @@ Reference analogue: the tile→rank block-cyclic maps (func.hh:100-217) applied 
 matrix construction (MatrixStorage.hh:494-499), plus ``slate::redistribute``
 (src/redistribute.cc:1-154).
 
-A distributed operand is a ``DTensor`` on the grid's mesh in one of three
+A distributed operand is a ``DTensor`` on the grid's mesh in one of four
 layouts: the 2-D block layout (rows over p, cols over q: ``[Shard(0),
 Shard(1)]``), the 1-D row layout over the flattened grid (``[Shard(0),
-Shard(0)]``, p-major) or replicated.  Shards follow ``torch.chunk``: the first
+Shard(0)]``, p-major), the 1-D column layout over the flattened grid
+(``[Shard(1), Shard(1)]``, p-major: compact band storage) or replicated.  Shards follow ``torch.chunk``: the first
 shards hold ``ceil(m/parts)`` rows and the last may hold fewer or none.
 Every driver also accepts a plain tensor that is the same on every rank; each
 rank then slices its own shard, which moves no data.
@@ -28,7 +29,7 @@ from ..core.exceptions import slate_assert
 from .collectives import axis_allgather
 from .mesh import COL_AXIS, FLAT, ProcessGrid, ROW_AXIS, Sharding
 
-BLOCK, ROWS, REPL = "block", "rows", "replicated"
+BLOCK, ROWS, COLS, REPL = "block", "rows", "cols", "replicated"
 
 
 def ceil_mult(x: int, mult: int) -> int:
@@ -62,13 +63,14 @@ def bounds(grid: ProcessGrid, m: int, n: int, layout: str = BLOCK):
     """((r0, r1), (c0, c1)): this rank's window of an m×n operand."""
     if layout == REPL:
         return (0, m), (0, n)
-    i, j = grid.my_coords
-    if layout == ROWS:
-        return chunk(m, grid.size, i * grid.q + j), (0, n)
-    return chunk(m, grid.p, i), chunk(n, grid.q, j)
+    return _window(grid, m, n, layout, grid.my_coords)
 
 
 def _placements(grid: ProcessGrid, layout: str):
+    from torch.distributed.tensor import Shard
+
+    if layout == COLS:
+        return (Shard(1), Shard(1))
     return {BLOCK: grid.spec(), ROWS: grid.row_spec(),
             REPL: grid.replicated()}[layout].placements
 
@@ -84,6 +86,8 @@ def layout_of(x) -> Optional[str]:
         return BLOCK
     if pl == (Shard(0), Shard(0)):
         return ROWS
+    if pl == (Shard(1), Shard(1)) and x.ndim == 2:
+        return COLS
     if pl == (Replicate(), Replicate()):
         return REPL
     return None
@@ -135,6 +139,13 @@ def gather(x, grid: Optional[ProcessGrid] = None) -> torch.Tensor:
         return _gather_dim(rows, mesh, ROW_AXIS, 0, x.shape[0])
     if layout == ROWS:
         return _gather_dim(loc, mesh, FLAT, 0, x.shape[0])
+    if layout == COLS:
+        return _gather_dim(loc, mesh, FLAT, 1, x.shape[1])
+    pl = set(x.placements)
+    if len(pl) == 1 and getattr(next(iter(pl)), "dim", None) is not None:
+        # one dim spread over the flattened grid (a reflector stack's rows)
+        d = next(iter(pl)).dim
+        return _gather_dim(loc, mesh, FLAT, d, x.shape[d])
     return x.full_tensor()
 
 
@@ -145,7 +156,7 @@ def local_block(x, grid: ProcessGrid, shape=None, layout: str = BLOCK,
     matrix SPD or invertible).
 
     A DTensor already in ``layout`` at ``shape`` gives a copy of its local
-    shard; a block- or row-layout DTensor on the grid's mesh in another
+    shard; a block-, row- or column-layout DTensor on the grid's mesh in another
     layout or shape sends each rank just the pieces of its window
     (:func:`_fetch`); any other DTensor is gathered first; a plain tensor is
     sliced.  The result is always a new tensor, which the drivers factor in
@@ -156,7 +167,7 @@ def local_block(x, grid: ProcessGrid, shape=None, layout: str = BLOCK,
         src = layout_of(x)
         if tuple(x.shape) == shape and src == layout:
             return x.to_local().clone(memory_format=torch.contiguous_format)
-        if src in (BLOCK, ROWS) and layout in (BLOCK, ROWS) \
+        if src in _FETCHABLE and layout in _FETCHABLE \
                 and x.device_mesh is grid.mesh:
             out = _fetch(x, grid, shape, layout)
             _eye_tail(out, grid, shape, layout, eye_from)
@@ -185,17 +196,22 @@ def _eye_tail(out, grid, shape, layout, eye_from) -> None:
         out[idx - r0, idx - c0] = 1
 
 
+_FETCHABLE = (BLOCK, ROWS, COLS)
+
+
 def _window(grid: ProcessGrid, m: int, n: int, layout: str, coords):
     """((r0, r1), (c0, c1)): the window of grid coordinate ``coords``."""
     i, j = coords
     if layout == ROWS:
         return chunk(m, grid.size, i * grid.q + j), (0, n)
+    if layout == COLS:
+        return (0, m), chunk(n, grid.size, i * grid.q + j)
     return chunk(m, grid.p, i), chunk(n, grid.q, j)
 
 
 def _fetch(x, grid: ProcessGrid, shape, layout: str) -> torch.Tensor:
     """This rank's ``layout`` window of ``x`` zero-padded to ``shape``, for a
-    DTensor ``x`` in the block or row layout: every rank sends each other
+    DTensor ``x`` in the block, row or column layout: every rank sends each other
     rank the overlap of its shard with that rank's window, point to point,
     so a rank receives only its own window (the redistribute of
     src/redistribute.cc, tile by tile)."""

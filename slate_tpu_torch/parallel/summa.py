@@ -84,17 +84,19 @@ def summa_gemm(alpha, A, B, beta, C, opts=None, grid: ProcessGrid | None = None)
     the result comes back in it, so only panels move.  Shapes the grid does
     not divide are zero-padded, which gathers the operands, and the result is
     cut back to a whole tensor."""
+    from ..core.matrix import dist_operand
+
     grid = grid or ProcessGrid.cached(device=_device_of(A, B, C))
-    a, b = _operand(A), _operand(B)
+    a, b = dist_operand(A), dist_operand(B)
     m, k = a.shape[-2:]
     n = b.shape[-1]
     if m % grid.p or n % grid.q or k % grid.p or k % grid.q:
         kmult = grid.p * grid.q
         prod = gemm_distributed(pad2d(gather(a), grid.p, kmult),
                                 pad2d(gather(b), kmult, grid.q), grid)
-        return alpha * gather(prod)[:m, :n] + beta * gather(_operand(C))
+        return alpha * gather(prod)[:m, :n] + beta * gather(dist_operand(C))
     prod = gemm_distributed(a, b, grid).to_local()
-    return wrap(alpha * prod + beta * local_block(_operand(C), grid), grid, (m, n))
+    return wrap(alpha * prod + beta * local_block(dist_operand(C), grid), grid, (m, n))
 
 
 def _device_of(*ops):
@@ -106,14 +108,6 @@ def _device_of(*ops):
         if isinstance(x, torch.Tensor):
             return x.device
     return None
-
-
-def _operand(X):
-    """The logical operand of a wrapper (in the block layout when it lives
-    whole on a grid) or a tensor as it is."""
-    from ..core.matrix import BaseMatrix
-
-    return X.dist_array() if isinstance(X, BaseMatrix) else X
 
 
 @instrument

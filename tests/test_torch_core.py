@@ -236,16 +236,17 @@ def test_tile_rank_and_owner_map():
 
 
 def test_multi_device_grid_is_refused():
-    """A wrapper bound to a grid of more than one rank reaches the drivers
-    whose distributed form is still owed (item 15b) and they refuse it; the
-    drivers with a distributed form route to it (tests/test_torch_grid_dispatch.py)."""
+    """A wrapper bound to a grid of more than one rank reaches eig_count, the
+    one driver without a distributed form in either package, and it refuses
+    with the JAX package's own message; the drivers with a distributed form
+    route to it (tests/test_torch_grid_dispatch.py)."""
     class Grid:
         size = 4
 
     A = st.HermitianMatrix.from_array("lower", torch.eye(4, dtype=torch.float64),
                                       grid=Grid())
-    with pytest.raises(st.SlateError, match="queue A item 15b"):
-        st.heev(A)
+    with pytest.raises(st.SlateError, match="eig_count has no distributed pipeline"):
+        st.eig_count(A, -1.0, 1.0)
 
 
 def _state(w) -> dict:

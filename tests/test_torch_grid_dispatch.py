@@ -5,8 +5,7 @@ norm routing, ``test_gels_branches``) and ``tests/test_straggler_dist.py``
 
 A wrapper constructed with ``grid=`` holds a DTensor in the grid's block
 layout, and the drivers with a distributed form run it: each routing test
-also counts the collectives the call made.  The drivers whose distributed
-form is item 15b refuse the grid.  The port runs on eight gloo ranks (one
+also counts the collectives the call made.  The port runs on eight gloo ranks (one
 pool for the module) in both grid orders, the JAX package on its virtual
 8-device mesh, imported lazily (the ranks import this module, torch only).
 """
@@ -126,32 +125,37 @@ def _drive(kind, a, b, opts, spec):
         band.set_array(t)
         C = st.gbmm(1.0, band, u, 0.0, torch.zeros_like(u))
         out = (lam, C)
-    elif kind == "refused":
-        H = st.HermitianMatrix.from_array("lower", t, nb=8, grid=g)
-        W = st.Matrix.from_array(t, nb=8, grid=g)
+    elif kind.startswith("dist:"):
+        # the eig/SVD, stedc, band and indefinite drivers on the grid
         n = t.shape[0]
-        band = st.HermitianBandMatrix("lower", n, 2, 8, grid=g, device="cpu",
-                                      dtype=t.dtype)
-        band.set_array(torch.eye(n, dtype=t.dtype) * 4)
-        gband = st.BandMatrix(n, n, 1, 1, 8, grid=g, device="cpu", dtype=t.dtype)
-        gband.set_array(torch.eye(n, dtype=t.dtype) * 4)
-        import importlib
+        H = st.HermitianMatrix.from_array("lower", t, nb=8, grid=g)
+        which = kind[len("dist:"):]
+        if which == "heev":
+            out = st.heev(H, {"block_size": 8})
+        elif which == "svd":
+            out = st.svd(st.Matrix.from_array(t, nb=8, grid=g), {"block_size": 8})
+        elif which == "stedc":
+            import importlib
 
-        stedc_mod = importlib.import_module("slate_tpu_torch.linalg.stedc")
-
-        calls_ = [lambda: st.heev(H), lambda: st.svd(W),
-                  lambda: stedc_mod.stedc(torch.ones(n, dtype=t.dtype),
-                                          torch.ones(n - 1, dtype=t.dtype), grid=g),
-                  lambda: st.pbsv(band, u.clone()),
-                  lambda: st.gbsv(gband, u.clone()),
-                  lambda: st.hesv(H, u.clone())]
-        out = []
-        for f in calls_:
+            sm = importlib.import_module("slate_tpu_torch.linalg.stedc")
+            old = sm._DIST_MERGE_MIN
+            sm._DIST_MERGE_MIN = 64      # a small size takes the grid's merges
             try:
-                f()
-                out.append(None)
-            except st.SlateError as e:
-                out.append(str(e))
+                out = sm.stedc(torch.diagonal(t).clone(), torch.diagonal(t, -1).clone(),
+                               grid=g)
+            finally:
+                sm._DIST_MERGE_MIN = old
+        elif which == "pbsv":
+            band = st.HermitianBandMatrix("lower", n, 2, 8, grid=g, device="cpu",
+                                          dtype=t.dtype)
+            band.set_array(torch.tril(t))
+            out = st.pbsv(band, u.clone(), {"block_size": 8})
+        elif which == "gbsv":
+            gband = st.BandMatrix(n, n, 1, 1, 8, grid=g, device="cpu", dtype=t.dtype)
+            gband.set_array(t)
+            out = st.gbsv(gband, u.clone(), {"block_size": 8})
+        else:
+            out = st.hesv(H, u.clone(), {"block_size": 8})
     else:
         raise ValueError(kind)
     return out
@@ -266,17 +270,71 @@ class TestWrapperGridRouting:
         out, calls = drive(pool, "nogrid", a)
         assert out is True and calls == 0
 
-    def test_15b_drivers_refuse_the_grid(self, pool):
-        """heev/svd/stedc/pbsv/gbsv/hesv on a grid: their distributed forms are
-        item 15b, and they say so."""
+    def test_15b_drivers_refuse_the_grid(self, pool, jx):
+        """heev/svd/stedc/pbsv/gbsv/hesv on the 2x4 grid: each runs its
+        distributed form (no longer refused), makes collectives,
+        and agrees with the JAX package's grid-bound call: values within
+        50 eps sqrt(n) ||A||_2, solves within the backward-error gate with
+        info equal."""
+        import importlib
+
         n = 16
         M = rng(9).standard_normal((n, n))
-        msgs, _ = drive(pool, "refused", M + M.T + 2 * n * np.eye(n),
-                        rng(10).standard_normal((n, 2)))
-        assert len(msgs) == 6
-        for m in msgs:
-            assert m is not None and "item 15b" in m
+        A = M + M.T + 2 * n * np.eye(n)
+        b = rng(10).standard_normal((n, 2))
+        tol = 50 * np.finfo(np.float64).eps * np.sqrt(n) * np.linalg.norm(A, 2)
+        gate = 50 * np.finfo(np.float64).eps * np.sqrt(n)
+        slate, jnp, g = jx.slate, jx.jnp, jx.g24
+        H = slate.HermitianMatrix.from_array("lower", jnp.asarray(A), nb=8, grid=g)
 
+        (lam, Z), calls = drive(pool, "dist:heev", A, b)
+        jlam, _ = slate.heev(H, {"block_size": 8})
+        assert calls > 0 and np.abs(lam - np.asarray(jlam)).max() <= tol
+        assert np.linalg.norm(A @ Z - Z * lam) / np.linalg.norm(A) < gate
+        (S, U, VT), calls = drive(pool, "dist:svd", A, b)
+        jS, _, _ = slate.svd(slate.Matrix.from_array(jnp.asarray(A), nb=8, grid=g),
+                             {"block_size": 8})
+        assert calls > 0 and np.abs(S - np.asarray(jS)).max() <= tol
+        assert np.linalg.norm(U * S @ VT - A) / np.linalg.norm(A) < gate
+
+        m = 80
+        T = rng(11).standard_normal((m, m))
+        T = np.diag(np.diag(T)) + np.diag(np.diag(T, -1), -1) + np.diag(np.diag(T, -1), 1)
+        (lt, Qt), calls = drive(pool, "dist:stedc", T, b)
+        jsm = importlib.import_module("slate_tpu.linalg.stedc")
+        old = jsm._DIST_MERGE_MIN
+        jsm._DIST_MERGE_MIN = 64
+        try:
+            jlt, _ = jsm.stedc(jnp.asarray(np.diag(T)), jnp.asarray(np.diag(T, -1)), grid=g)
+        finally:
+            jsm._DIST_MERGE_MIN = old
+        assert calls > 0
+        assert np.abs(lt - np.asarray(jlt)).max() <= 50 * np.finfo(float).eps * np.sqrt(
+            m) * np.linalg.norm(T, 2)
+        assert np.abs(T @ Qt - Qt * lt).max() < 1e-12
+
+        ii, jj = np.mgrid[0:n, 0:n]
+        Pb = np.where(np.abs(ii - jj) <= 2, A, 0.0)
+        (X, info), calls = drive(pool, "dist:pbsv", Pb, b)
+        Wb = slate.HermitianBandMatrix("lower", n, 2, 8, grid=g)
+        Wb.set_array(jnp.asarray(np.tril(Pb)))
+        jX, jinfo = slate.pbsv(Wb, jnp.asarray(b), {"block_size": 8})
+        assert calls > 0 and int(info) == int(jinfo) == 0
+        for x in (X, np.asarray(jX)):
+            assert np.linalg.norm(Pb @ x - b) / (np.linalg.norm(Pb) * np.linalg.norm(x)) < gate
+        Gb = np.where(np.abs(ii - jj) <= 1, A + M, 0.0)
+        (X, info), calls = drive(pool, "dist:gbsv", Gb, b)
+        Wg = slate.BandMatrix(n, n, 1, 1, 8, grid=g)
+        Wg.set_array(jnp.asarray(Gb))
+        jX, jinfo = slate.gbsv(Wg, jnp.asarray(b), {"block_size": 8})
+        assert calls > 0 and int(info) == int(jinfo) == 0
+        for x in (X, np.asarray(jX)):
+            assert np.linalg.norm(Gb @ x - b) / (np.linalg.norm(Gb) * np.linalg.norm(x)) < gate
+        (X, info), calls = drive(pool, "dist:hesv", A, b)
+        jX, jinfo = slate.hesv(H, jnp.asarray(b), {"block_size": 8})
+        assert calls > 0 and int(info) == int(jinfo) == 0
+        for x in (X, np.asarray(jX)):
+            assert np.linalg.norm(A @ x - b) / (np.linalg.norm(A) * np.linalg.norm(x)) < gate
 
     def test_drivers_without_a_distributed_form_run_locally(self, pool):
         """hegv and gbmm have no grid dispatch in the JAX package either: on a

@@ -36,30 +36,6 @@ OWED = {
         "obs:COLLECTIVE_OPS", "obs:RoutineSpec", "obs:audit_all", "obs:audit_routine",
         "obs:collective_volume", "obs:harvest", "obs:harvest_many", "obs:make_grid",
         "obs:spec_names", "obs:specs", "testing:cost_analysis_dict"],
-    "15b (the distributed eigenvalue, SVD, band and indefinite drivers)": [
-        "parallel.band_dist", "parallel.indefinite_dist", "parallel.chase_dist",
-        "parallel.secular",
-        "parallel.eig_dist:heev_distributed", "parallel.eig_dist:hegv_distributed",
-        "parallel.eig_dist:svd_distributed", "parallel.eig_dist:he2hb_distributed",
-        "parallel.eig_dist:ge2tb_distributed",
-        "parallel.eig_dist:unmtr_he2hb_distributed",
-        "parallel.eig_dist:steqr_distributed",
-        "parallel.eig_dist:heev_range_distributed",
-        "parallel.eig_dist:svd_range_distributed",
-        "parallel.eig_dist:hb2st_q_distributed",
-        "parallel:heev_distributed", "parallel:hegv_distributed",
-        "parallel:svd_distributed", "parallel:he2hb_distributed",
-        "parallel:ge2tb_distributed", "parallel:unmtr_he2hb_distributed",
-        "parallel:steqr_distributed", "parallel:heev_range_distributed",
-        "parallel:svd_range_distributed", "parallel:hb2st_chase_distributed",
-        "parallel:tb2bd_chase_distributed", "parallel:pbtrf_distributed",
-        "parallel:pbtrs_distributed", "parallel:pbsv_distributed",
-        "parallel:tbsm_distributed", "parallel:gbtrf_distributed",
-        "parallel:gbtrs_distributed", "parallel:gbsv_distributed",
-        "parallel:dense_to_band_lower", "parallel:band_lower_to_dense",
-        "parallel:dense_to_band_general", "parallel:band_general_to_dense",
-        "parallel:hetrf_distributed", "parallel:hetrs_distributed",
-        "parallel:hesv_distributed", "parallel:HermitianFactorsDist"],
     "16 (compatibility and tooling)": ["scalapack_api", "analysis"],
 }
 REPLACED = {

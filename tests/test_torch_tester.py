@@ -242,14 +242,17 @@ class TestDispatch:
 
     @pytest.mark.parametrize("routine", ["heev", "svd"])
     def test_grid_sweep_refuses_15b_drivers(self, routine, rank_pool):
-        """The eigenvalue and SVD rows on a grid report the refusal of the
-        drivers whose distributed form is not ported yet (item 15b)."""
-        from slate_tpu_torch.core.matrix import _NOT_PORTED_GRID
+        """The eigenvalue and SVD rows on a grid run the distributed drivers
+        (item 15b, no longer refused): the row passes the JAX runners' gate,
+        and every rank made collectives during it."""
+        from torch_rank_jobs import counted_call
 
         p = params(32, np.float64, nb=8, grid=(2, 4))
-        r = rank_pool.call("slate_tpu_torch.testing.run_routine", routine, p,
-                           device="cpu", grid=(2, 4, "col"))
-        assert r.status == "error" and _NOT_PORTED_GRID in r.message, r.message
+        got = rank_pool.run(counted_call, "slate_tpu_torch.testing.run_routine",
+                            (routine, p), {"device": "cpu"}, (2, 4, "col"))
+        r = got[0][0]
+        assert r.status == "pass", (r.status, r.message)
+        assert all(calls > 0 for _, calls in got), [calls for _, calls in got]
 
     def test_runner_never_raises(self):
         r = run_routine("gemm", {"m": 8}, device="cpu")

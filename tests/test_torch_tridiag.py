@@ -273,11 +273,17 @@ def test_stedc_chunked_secular_equals_one_chunk(monkeypatch):
 
 
 def test_stedc_refuses_a_multi_device_grid():
+    """stedc(grid=) no longer refuses a grid (its distributed merges are
+    ported).  Below ``_DIST_MERGE_MIN`` the merges stay local, so a grid of
+    any size gives the single-device result bit for bit without touching
+    it; the merges over a grid are held against the JAX package in
+    tests/test_torch_eig_dist.py and tests/test_torch_grid_dispatch.py."""
     class Grid:
         size = 4
     d, e = _tridiag(10, 13)
-    with pytest.raises(st.SlateError, match="not ported"):
-        tsd.stedc(_t(d), _t(e), grid=Grid())
+    lam_g, Q_g = tsd.stedc(_t(d), _t(e), grid=Grid())
+    lam, Q = tsd.stedc(_t(d), _t(e))
+    assert torch.equal(lam_g, lam) and torch.equal(Q_g, Q)
 
 
 def test_sturm_guard_pass_equals_the_guarded_recurrence():
