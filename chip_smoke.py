@@ -118,7 +118,26 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     ``hesv_distributed`` under phase 10's small-step gates; at n = 512 f64
     ``MethodEig.QR`` (steqr on the rows, 100 n eps) and bisection.  Each
     step's seconds beside phase 10's single-device seconds on the same
-    matrix, the phase's wall time and peak device memory.
+    matrix, the phase's wall time and peak device memory;
+14. the host runtime and the ScaLAPACK API, with the kernels' launch counters
+    set to 0 just before and read just after (both must launch, and each from
+    ``pslange`` one / inf on both routes): the native runtime must be the
+    compiled library (``native.backend() == "native"``); its owner maps,
+    local tiles and redistribution plans at 2048^2 tiles on 8x4 and 4x8 grids
+    in both orders equal the Python versions exactly (both timed); a
+    MemoryPool cycle of 65,536 blocks rejects a double free; phase 1's posv
+    under ``trace.on()`` with pool tracking on (native regions equal to the
+    ``trace_block`` regions, the native dump parsed as chrome-trace JSON, the
+    tracked storages leak-free, the backward error, the tracing overhead);
+    ``save_matrix`` / ``load_matrix`` of the 16384^2 f32 matrix through a
+    temporary directory (bit-equal, GB/s) and ``print_matrix`` at verbose 2
+    against the CPU copy's text; then each p* call with no grid and on a 1x1
+    NCCL grid (the distributed bodies): psgemm, pslange (one, inf, fro, max),
+    psposv, psgesv and psgetrf at 16384 f32, psgels at 131072 x 4096 (its
+    forward error against an f64 normal-equations solution), pdgetri / pdgecon / pdpotri / pdpocon at 4096 f64, pssyev (vectors),
+    pssyevd (values) and psgesvd at 4096 f32 — each route's seconds, its
+    host<->device copy share, its error under its gate and the two routes'
+    agreement.
 
 The last lines are a JSON line of per-kernel numbers, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -1203,10 +1222,19 @@ def header() -> dict:
     say("float32_matmul_precision", precision)
     require(tf32 is False, "TF32 matmuls are on")
     require(precision == "highest", f"float32 matmul precision {precision!r}")
+    # the CUDA kernels (nvcc) and the native host runtime (g++) build together
+    from concurrent.futures import ThreadPoolExecutor
+    from slate_tpu_torch import native
+
     t0 = time.perf_counter()
-    path = cn.build()
-    say("kernel_build_s", time.perf_counter() - t0)
+    with ThreadPoolExecutor(1) as ex:
+        host = ex.submit(lambda: (native.build(), time.perf_counter() - t0))
+        path = cn.build()
+        say("kernel_build_s", time.perf_counter() - t0)
+        host_path, host_s = host.result()
     say("kernel_library", path)
+    say("native_build_s", host_s)
+    say("native_library", host_path)
     for line in cn.BUILD_LOG.splitlines():
         if "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -2669,6 +2697,496 @@ def full_dist_eig_path() -> dict:
     return launches
 
 
+# phase 14: the host runtime (native maps, pool, trace capture), checkpoint and
+# print, and the ScaLAPACK API at phase 12's and phase 13's full sizes, each p*
+# call once with no grid (the LAPACK skin on one device) and once on a 1x1 grid
+# (the distributed bodies, core.matrix.BIND_MIN_RANKS lowered to 1)
+COMPAT = {"tiles": 2048, "grids": ((8, 4), (4, 8)), "pool_blocks": 65536,
+          "n": N, "nb": NB, "nrhs": NRHS, "ls_m": 131072, "ls_n": 4096, "ls_nrhs": 16,
+          "inv_n": 4096, "eig_n": 4096}
+
+
+def native_checks(sizes: dict) -> dict:
+    """The native maps against their Python versions (exact) at ``tiles``²
+    tiles on each grid of ``sizes`` in both orders (owner map, the tiles of
+    three ranks, the plan to the transposed grid in the other order), each
+    version's seconds, and a MemoryPool cycle of ``pool_blocks`` blocks on
+    both backends with a double free rejected."""
+    from slate_tpu_torch import native
+
+    out = {"native_backend": native.backend()}
+    t = sizes["tiles"]
+    secs = {"native": 0.0, "python": 0.0}
+    equal = True
+    for p, q in sizes["grids"]:
+        for order, other in (("col", "row"), ("row", "col")):
+            ranks = (0, p * q // 2, p * q - 1)
+
+            def maps():
+                return (native.owner_map(t, t, p, q, order),
+                        [native.local_tiles(t, t, p, q, r, order) for r in ranks],
+                        native.redist_plan(t, t, (p, q), (q, p), order, other))
+            got = {}
+            for which in ("native", "python"):
+                with (native.use_python() if which == "python"
+                      else contextlib.nullcontext()):
+                    t0 = time.perf_counter()
+                    got[which] = maps()
+                    secs[which] += time.perf_counter() - t0
+            (om, lt, rp), (om2, lt2, rp2) = got["native"], got["python"]
+            equal &= (np.array_equal(om, om2) and om.dtype == om2.dtype == np.int32
+                      and all(np.array_equal(a, b) for a, b in zip(lt, lt2))
+                      and np.array_equal(rp[0], rp2[0]) and np.array_equal(rp[1], rp2[1])
+                      and rp[2] == rp2[2])
+    out.update(maps_equal=bool(equal), maps_native_s=secs["native"],
+               maps_python_s=secs["python"],
+               maps_python_over_native=secs["python"] / secs["native"])
+    nblk = sizes["pool_blocks"]
+    for which in ("native", "python"):
+        with native.use_python() if which == "python" else contextlib.nullcontext():
+            pool = native.MemoryPool(TILE * TILE * 4, nblk)
+            t0 = time.perf_counter()
+            ids = [pool.alloc() for _ in range(nblk)]
+            exhausted = pool.alloc() == -1
+            freed = all(pool.free(i) for i in ids)
+            double = pool.free(ids[0])
+            out[f"pool_{which}_s"] = time.perf_counter() - t0
+            out[f"pool_{which}_ok"] = (pool.backend == which
+                                       and sorted(ids) == list(range(nblk)) and exhausted
+                                       and freed and not double and pool.in_use == 0
+                                       and pool.peak == nblk)
+            pool.close()
+    return out
+
+
+def trace_posv(device, sizes: dict, tmp: str) -> dict:
+    """Phase 1's posv (A = M Mᵀ/n + 2I, Tiled) once untraced and once under
+    ``trace.on()`` with pool tracking on: the native capture's region count
+    against the Python buffer's ``trace_block`` regions, the native dump
+    parsed as chrome-trace JSON, the tracked storages, their pools' leak
+    check, the backward error, and the traced seconds over the untraced."""
+    from slate_tpu_torch import native
+    from slate_tpu_torch.utils import debug
+
+    n, nb, k = sizes["n"], sizes["nb"], sizes["nrhs"]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    A = spd(n, gen, device, torch.float32)
+    B = torch.randn((n, k), generator=gen, device=device, dtype=torch.float32)
+    opts = {"target": "tiled", "block_size": nb}
+
+    def solve():
+        Aw = slate.HermitianMatrix.from_array("lower", A, nb=nb)
+        Bw = slate.Matrix.from_array(B, nb=nb)
+        X, info = slate.posv(Aw, Bw, opts)
+        return Aw, Bw, X, info
+    times, step = _timed(device)
+    step("posv_warm_s", solve)
+    step("posv_untraced_s", solve)
+    trace.finish(os.path.join(tmp, "before.json"))      # start from an empty buffer
+    native.trace_clear()
+    debug.enable_pool_tracking(True)
+    trace.on()
+    try:
+        Aw, Bw, X, info = step("posv_traced_s", solve)
+    finally:
+        trace.off()
+        debug.enable_pool_tracking(False)
+    py_path, nat_path = os.path.join(tmp, "python.json"), os.path.join(tmp, "native.json")
+    trace.finish(py_path)
+    with open(py_path) as f:
+        regions = [e for e in json.load(f)["traceEvents"]
+                   if e.get("ph") == "X" and e.get("cat") == "slate"]
+    dumped = native.trace_dump(nat_path)
+    with open(nat_path) as f:
+        captured = json.load(f)["traceEvents"]
+    live, live_bytes = debug.live_workspace_report()
+    pools = [w.storage.pool for w in (Aw, Bw)]
+    for w, pool in zip(("A", "B"), pools):
+        debug.check_no_leaks(pool, w)
+    out = {"trace_python_regions": len(regions), "trace_native_regions": native.trace_count(),
+           "trace_dump_ok": bool(dumped), "trace_dump_events": len(captured),
+           "trace_names_equal": sorted(e["name"] for e in regions)
+           == sorted(e["name"] for e in captured),
+           "tracked_storages": live, "tracked_bytes": live_bytes,
+           "tracked_pools": all(p is not None and p.in_use == 0 for p in pools),
+           "posv_info": int(info), "posv_error": backward_error(A, X, B),
+           "trace_overhead": times["posv_traced_s"] / times["posv_untraced_s"]}
+    native.trace_clear()
+    out.update(times)
+    return out
+
+
+def checkpoint_print(device, sizes: dict, tmp: str) -> dict:
+    """``save_matrix`` / ``load_matrix`` of the posv matrix through ``tmp``
+    (bit-equal round trip, seconds and GB/s each way), then ``print_matrix``
+    at verbose 2 of the card's wrapper against that of its CPU copy."""
+    n, nb = sizes["n"], sizes["nb"]
+    A = spd(n, torch.Generator(device=device).manual_seed(SEED), device, torch.float32)
+    W = slate.Matrix.from_array(A, nb=nb)
+    path = os.path.join(tmp, "A.npz")
+    gb = A.numel() * A.element_size() / 1e9
+    t0 = time.perf_counter()
+    slate.save_matrix(path, W)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    L = slate.load_matrix(path, device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    out = {"checkpoint_bit_equal": bool(type(L) is slate.Matrix and L.storage.nb == nb
+                                        and L.device == A.device
+                                        and torch.equal(L.array, A)),
+           "checkpoint_gb": gb, "save_s": save_s, "load_s": load_s,
+           "save_gb_s": gb / save_s, "load_gb_s": gb / load_s}
+    os.remove(path)
+    del L
+    t0 = time.perf_counter()
+    text = slate.print_matrix("A", W, verbose=2, file=io.StringIO())
+    out["print_s"] = time.perf_counter() - t0
+    host = slate.print_matrix("A", slate.Matrix.from_array(A.cpu(), nb=nb), verbose=2,
+                              file=io.StringIO())
+    out.update(print_equal=text == host, print_lines=text.count("\n") + 1,
+               print_has_ellipsis="..." in text)
+    return out
+
+
+@contextlib.contextmanager
+def timed_copies(device):
+    """Time the numpy skins' copies (``lapack_api._as`` to the device,
+    ``lapack_api._host`` back, which ``scalapack_api`` calls too): the card is
+    synced before and after each, so a copy is timed to its end and never
+    with the compute queued before it.  Yields the seconds by direction."""
+    from slate_tpu_torch import lapack_api as la
+
+    seconds = {"h2d": 0.0, "d2h": 0.0}
+    plain = {"h2d": la._as, "d2h": la._host}
+    on_card = torch.device(device).type == "cuda"
+
+    def timed(direction):
+        def copy(*args):
+            if on_card:
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out = plain[direction](*args)
+            if on_card:
+                torch.cuda.synchronize(device)
+            seconds[direction] += time.perf_counter() - t0
+            return out
+        return copy
+
+    la._as, la._host = timed("h2d"), timed("d2h")
+    try:
+        yield seconds
+    finally:
+        la._as, la._host = plain["h2d"], plain["d2h"]
+
+
+def scalapack_steps(device, sizes: dict) -> dict:
+    """Each p* step of phase 14 with no grid and on a 1x1 grid: seconds of
+    both routes, the share of each spent copying operands to the device and
+    results back (:func:`timed_copies`), each answer's error under its
+    gate (PERF.md §2) and the two answers' agreement; the route each call
+    took (``scalapack_api.ROUTES``) and the norm kernels' launches of each
+    call."""
+    import torch.distributed as dist
+    from slate_tpu_torch import scalapack_api as sa
+    from slate_tpu_torch.linalg import pivots_to_perm
+
+    f32, f64 = torch.float32, torch.float64
+    n, k = sizes["n"], sizes["nrhs"]
+    grid = sa.gridinit(1, 1, device=device)
+    sa.gridexit()
+    steps = {"grid": f"{grid.p}x{grid.q} {grid.order}",
+             "world_size": dist.get_world_size(), "backend": str(dist.get_backend())}
+
+    def h(t):
+        return t.cpu().numpy()
+
+    def d(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    def run(key, name, *args):
+        """(no-grid result, grid result) of one p* call, each timed (ending
+        in its numpy result) and its route checked."""
+        out, res = {}, {}
+        for route in ("single", "grid"):
+            before, launches = dict(sa.ROUTES), dict(cn.LAUNCHES)
+            copies = sum(copy_seconds.values())
+            kw = {"device": device} if route == "single" else {}
+            if route == "grid":
+                sa.gridinit(1, 1, device=device)
+            t0 = time.perf_counter()
+            try:
+                res[route] = getattr(sa, name)(*args, **kw)
+            finally:
+                sa.gridexit()
+            out[f"{route}_s"] = time.perf_counter() - t0
+            want = "lapack" if route == "single" else "distributed"
+            out[f"{route}_route_ok"] = (sa.ROUTES[want] - before[want] == 1 and
+                                        sum(sa.ROUTES.values()) - sum(before.values()) == 1)
+            out[f"{route}_launches"] = {c: cn.LAUNCHES[c] - launches[c] for c in launches}
+            out[f"{route}_copy_share"] = ((sum(copy_seconds.values()) - copies)
+                                          / out[f"{route}_s"])
+        out["grid_over_single"] = out["grid_s"] / out["single_s"]
+        steps[key] = out
+        return res["single"], res["grid"]
+
+    with bind_one_rank_grids(), timed_copies(device) as copy_seconds:
+        # gemm 16384^2 f32: probe vectors against alpha A (B V) + beta C V
+        A, Bm, C = (randn((n, n), f32, device, SEED + 140 + i) for i in range(3))
+        a, b, c = h(A), h(Bm), h(C)
+        rs, rg = run("gemm", "psgemm", "n", "n", 1.5, a, b, 0.5, c)
+        V = randn((n, PROBES), f32, device, SEED + 143).double()
+        ref = (1.5 * torch.matmul(A.double(), torch.matmul(Bm.double(), V))
+               + 0.5 * torch.matmul(C.double(), V))
+        scale = (1.5 * tfro(A) * tfro(Bm) + 0.5 * tfro(C)) * tfro(V)
+        for route, r in (("single", rs), ("grid", rg)):
+            steps["gemm"][f"{route}_error"] = tfro(torch.matmul(d(r).double(), V)
+                                                   - ref) / scale
+        steps["gemm"].update(agreement=_rel(d(rg), d(rs)), gate=gate(f32, n))
+        # the norms of A: one / inf launch col_reduce / row_sums on both routes
+        for kind, char in (("one", "1"), ("inf", "i"), ("fro", "f"), ("max", "m")):
+            vs, vg = run(f"lange_{kind}", "pslange", char, a)
+            steps[f"lange_{kind}"].update(single_value=vs, grid_value=vg,
+                                          agreement=abs(vg - vs) / vs, gate=RTOL[f32])
+        del A, Bm, C, a, b, c, rs, rg, ref
+        # posv: phase 1's matrix and right-hand sides
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        S = spd(n, gen, device, f32)
+        B = torch.randn((n, k), generator=gen, device=device, dtype=f32)
+        s_np, b_np = h(S), h(B)
+        (xs, is_), (xg, ig) = run("posv", "psposv", "l", s_np, b_np)
+        steps["posv"].update(single_info=is_, grid_info=ig,
+                             single_error=backward_error(S, d(xs), B),
+                             grid_error=backward_error(S, d(xg), B),
+                             agreement=_agree(S, d(xg), d(xs)), gate=gate(f32, n))
+        del S, s_np, xs, xg
+        # gesv and getrf 16384 f32: tournament against partial pivoting, so the
+        # factors are held by P A = L U on probe vectors, not by their pivots
+        G = randn((n, n), f32, device, SEED + 144)
+        g_np = h(G)
+        (xs, _, is_), (xg, _, ig) = run("gesv", "psgesv", g_np, b_np)
+        steps["gesv"].update(single_info=is_, grid_info=ig,
+                             single_error=backward_error(G, d(xs), B),
+                             grid_error=backward_error(G, d(xg), B),
+                             agreement=_agree(G, d(xg), d(xs)), gate=gate(f32, n))
+        del xs, xg
+        fs, fg = run("getrf", "psgetrf", g_np)
+        V = randn((n, PROBES), f32, device, SEED + 145)
+        for route, (lu_, ipiv, info) in (("single", fs), ("grid", fg)):
+            LU = d(lu_)
+            perm = torch.from_numpy(pivots_to_perm(ipiv)).to(device)
+            UV = torch.matmul(torch.triu(LU), V)
+            R = torch.matmul(G[perm], V).sub_(torch.matmul(torch.tril(LU, -1), UV)).sub_(UV)
+            steps["getrf"][f"{route}_info"] = int(info)
+            steps["getrf"][f"{route}_error"] = tfro(R) / (tfro(G) * tfro(V))
+        steps["getrf"].update(agreement=max(steps["getrf"]["single_error"],
+                                            steps["getrf"]["grid_error"]),
+                              gate=gate(f32, n))
+        del G, g_np, fs, fg, LU, UV, R, B, b_np
+        # gels 131072 x 4096 f32, 16 right-hand sides
+        m, ln, lk = sizes["ls_m"], sizes["ls_n"], sizes["ls_nrhs"]
+        L = randn((m, ln), f32, device, SEED + 146)
+        R = randn((m, lk), f32, device, SEED + 147)
+        l_np, r_np = h(L), h(R)
+        xs, xg = run("gels", "psgels", "n", l_np, r_np)
+        # the reference solution by the normal equations in f64: a Gaussian
+        # m x n matrix with m = 32 n has kappa ~ 1.4, so kappa^2 eps_64 is far
+        # below the f32 gate, and the forward error sees a wrong X (2 X reads 1)
+        Ld = L.double()
+        X_ref = torch.cholesky_solve(torch.matmul(Ld.mT, R.double()),
+                                     torch.linalg.cholesky(torch.matmul(Ld.mT, Ld)))
+        del Ld
+        steps["gels"].update(single_error=_rel(d(xs), X_ref), grid_error=_rel(d(xg), X_ref),
+                             single_ls_residual=ls_residual(L, d(xs), R),
+                             grid_ls_residual=ls_residual(L, d(xg), R),
+                             agreement=_rel(d(xg), d(xs)), gate=gate(f32, ln))
+        del L, R, l_np, r_np, xs, xg, X_ref
+        # condition estimates and inverses at 4096 f64 from the LAPACK skins' factors
+        ni = sizes["inv_n"]
+        G = randn((ni, ni), f64, device, SEED + 148)
+        P = spd(ni, torch.Generator(device=device).manual_seed(SEED + 149), device, f64)
+        g_np, p_np = h(G), h(P)
+        I = torch.eye(ni, dtype=f64, device=device)
+        lu_, ipiv, _ = sa.pdgetrf(g_np, device=device)
+        lf, _ = sa.pdpotrf("l", p_np, device=device)
+        xs, xg = run("getri", "pdgetri", lu_, ipiv)
+        Xs, Xg = d(xs), d(xg)
+        steps["getri"].update(single_error=_rel(torch.matmul(G, Xs), I) / math.sqrt(ni),
+                              grid_error=_rel(torch.matmul(G, Xg), I) / math.sqrt(ni),
+                              agreement=_agree(G, Xg, Xs), gate=gate(f64, ni))
+        true_g = 1.0 / (float(torch.linalg.matrix_norm(G, 1))
+                        * float(torch.linalg.matrix_norm(Xs, 1)))
+        cs, cg = run("gecon", "pdgecon", "1", lu_, ipiv, np.abs(g_np).sum(0).max())
+        steps["gecon"].update(single_value=cs, grid_value=cg, true_rcond=true_g,
+                              single_error=max(cs / true_g, true_g / cs),
+                              grid_error=max(cg / true_g, true_g / cg),
+                              agreement=max(cg / cs, cs / cg))
+
+        def full(T):
+            return torch.tril(T) + torch.tril(T, -1).mH
+        xs, xg = run("potri", "pdpotri", "l", lf)
+        Xs, Xg = full(d(xs)), full(d(xg))
+        steps["potri"].update(single_error=_rel(torch.matmul(P, Xs), I) / math.sqrt(ni),
+                              grid_error=_rel(torch.matmul(P, Xg), I) / math.sqrt(ni),
+                              agreement=_rel(Xg, Xs), gate=gate(f64, ni))
+        true_p = 1.0 / (float(torch.linalg.matrix_norm(P, 1))
+                        * float(torch.linalg.matrix_norm(Xs, 1)))
+        cs, cg = run("pocon", "pdpocon", "l", lf, np.abs(p_np).sum(0).max())
+        steps["pocon"].update(single_value=cs, grid_value=cg, true_rcond=true_p,
+                              single_error=max(cs / true_p, true_p / cs),
+                              grid_error=max(cg / true_p, true_p / cg),
+                              agreement=max(cg / cs, cs / cg))
+        del G, P, I, Xs, Xg, xs, xg
+        # the eigensolvers and the SVD at 4096 f32, under phase 13's gates
+        ne = sizes["eig_n"]
+        E = sym_normal(ne, f32, device, SEED + 150)
+        e_np = h(E)
+        (ls, zs), (lg, zg) = run("syev", "pssyev", "v", "l", e_np)
+        lam_s, lam_g = d(ls), d(lg)
+        steps["syev"].update(single_error=eig_gate(E, lam_s, d(zs)),
+                             grid_error=eig_gate(E, lam_g, d(zg)),
+                             agreement=float((lam_g - lam_s).abs().max())
+                             / float(lam_s.abs().max()), gate=gate(f32, ne))
+        # values alone: sum(lam^2) against ||E||_F^2, sum(lam) against tr E
+        (ls, zs), (lg, zg) = run("syevd", "pssyevd", "n", "l", e_np)
+        chk = {route: values_checks(E, d(v), "v") for route, v in (("single", ls),
+                                                                    ("grid", lg))}
+        steps["syevd"].update(
+            {f"{r}_{k}": v for r, c in chk.items() for k, v in
+             (("error", c["v_sumsq_err"]), ("trace_err", c["v_trace_err"]),
+              ("ascending", c["v_ascending"]))},
+            vectors=[zs, zg], agreement=float(np.abs(lg - ls).max() / np.abs(ls).max()),
+            gate=gate(f32, ne), trace_gate=50 * torch.finfo(f32).eps)
+        Gs = randn((ne, ne), f32, device, SEED + 151)
+        gs_np = h(Gs)
+        (ss, us, vts), (sg, ug, vtg) = run("gesvd", "psgesvd", "s", "s", gs_np)
+        steps["gesvd"].update(single_error=svd_gate(Gs, d(ss), d(us), d(vts)),
+                              grid_error=svd_gate(Gs, d(sg), d(ug), d(vtg)),
+                              agreement=float(np.abs(sg - ss).max() / ss.max()),
+                              gate=gate(f32, ne))
+    return steps
+
+
+def compat_path(device, sizes: dict = COMPAT, tmp_dir=None) -> dict:
+    """Phase 14 on ``device``: the native runtime, the traced posv, the
+    checkpoint and print, and the ScaLAPACK steps.  The checkpoint and the
+    traces go through a temporary directory under ``tmp_dir`` that is removed
+    afterwards."""
+    import shutil
+    import tempfile
+
+    out = {}
+    times, step = _timed(device)
+    tmp = tempfile.mkdtemp(dir=tmp_dir)
+    try:
+        out.update(step("native_s", lambda: native_checks(sizes)))
+        out["trace"] = step("trace_s", lambda: trace_posv(device, sizes, tmp))
+        out["checkpoint"] = step("checkpoint_s", lambda: checkpoint_print(device, sizes, tmp))
+    finally:
+        shutil.rmtree(tmp)
+    steps = step("scalapack_s", lambda: scalapack_steps(device, sizes))
+    for key in ("grid", "world_size", "backend"):
+        out[key] = steps.pop(key)
+    out["steps"] = steps
+    out["times"] = times
+    return out
+
+
+def check_compat_path(res: dict, sizes: dict = COMPAT) -> None:
+    require(res["native_backend"] == "native",
+            f"native backend {res['native_backend']}, not the compiled library")
+    require(res["maps_equal"], "native maps differ from their Python versions")
+    for which in ("native", "python"):
+        require(res[f"pool_{which}_ok"], f"MemoryPool cycle failed on {which}")
+    tr = res["trace"]
+    require(tr["trace_native_regions"] == tr["trace_python_regions"] > 0,
+            f"native capture {tr['trace_native_regions']} regions, "
+            f"trace_block {tr['trace_python_regions']}")
+    require(tr["trace_dump_ok"] and tr["trace_dump_events"] == tr["trace_native_regions"]
+            and tr["trace_names_equal"], "native trace dump disagrees with trace_block")
+    require(tr["tracked_storages"] >= 2 and tr["tracked_pools"],
+            "pool tracking did not see the posv storages")
+    require(tr["posv_info"] == 0 and tr["posv_error"] <= gate(torch.float32, sizes["n"]),
+            f"traced posv backward error {tr['posv_error']:.3e}")
+    ck = res["checkpoint"]
+    require(ck["checkpoint_bit_equal"], "checkpoint round trip not bit-equal")
+    require(ck["print_equal"] and ck["print_has_ellipsis"],
+            "print_matrix of the card's matrix differs from the CPU copy's")
+    for key, st in res["steps"].items():
+        for route in ("single", "grid"):
+            require(st[f"{route}_route_ok"], f"p* {key} {route}: wrong route")
+            if f"{route}_info" in st:
+                require(st[f"{route}_info"] == 0, f"p* {key} {route} info {st[f'{route}_info']}")
+        if key in ("gecon", "pocon"):
+            # Hager/Higham estimates: within 10x of the true rcond, 2x of each other
+            for route in ("single", "grid"):
+                require(st[f"{route}_error"] <= 10.0, f"p* {key} {route} estimate "
+                        f"{st[f'{route}_value']:.3e} vs {st['true_rcond']:.3e}")
+            require(st["agreement"] <= 2.0, f"p* {key} routes disagree")
+            continue
+        for what in ("single_error", "grid_error"):
+            if what in st:
+                require(st[what] <= st["gate"], f"p* {key} {what} {st[what]:.3e} > "
+                        f"{st['gate']:.3e}")
+        if key == "syevd":
+            require(st["vectors"] == [None, None], "pssyevd 'n' returned vectors")
+            for route in ("single", "grid"):
+                require(st[f"{route}_ascending"] and
+                        st[f"{route}_trace_err"] <= st["trace_gate"],
+                        f"p* syevd {route} values: trace error "
+                        f"{st[f'{route}_trace_err']:.3e}")
+        bound = st.get("agreement_gate",
+                       2 * st["gate"] if key in ("gesv", "getri") else st["gate"])
+        require(st["agreement"] <= bound, f"p* {key} routes disagree: "
+                f"{st['agreement']:.3e} > {bound:.3e}")
+
+
+def full_compat_path() -> dict:
+    """Phase 14 on a 1x1 NCCL grid, with the kernels' launch counters set to 0
+    just before and read just after.  One collective of each kind on each
+    axis starts the process group and its communicators first."""
+    from slate_tpu_torch import parallel as par
+
+    grid = par.ProcessGrid.cached(1, 1, device="cuda")
+    w = torch.ones(256, device="cuda")
+    for axis in (par.ROW_AXIS, par.COL_AXIS, par.mesh.FLAT):
+        for op in ("sum", "max"):
+            par.axis_allreduce(w, grid, axis, op)
+        par.axis_allgather(w, grid, axis)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in cn.LAUNCHES:
+        cn.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    res = compat_path("cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(cn.LAUNCHES)
+    say("compat_card", nvidia_smi())
+    for key in ("native_backend", "maps_equal", "maps_native_s", "maps_python_s",
+                "maps_python_over_native", "pool_native_s", "pool_python_s",
+                "pool_native_ok", "pool_python_ok", "grid", "world_size", "backend"):
+        say(f"compat_{key}", res[key])
+    say("compat_trace", json.dumps(res["trace"]))
+    say("compat_checkpoint", json.dumps(res["checkpoint"]))
+    for key, st in res["steps"].items():
+        say(f"compat_{key}", json.dumps(st))
+    say("compat_times", json.dumps(res["times"]))
+    say("compat_wall_s", wall)
+    say("compat_peak_memory_gib", torch.cuda.max_memory_allocated() / 2**30)
+    say("compat_launches", json.dumps(launches))
+    check_compat_path(res)
+    for name in ("col_reduce", "row_sums"):
+        require(launches[name] > 0, f"phase 14 did not launch {name}")
+    for kind, name in (("one", "col_reduce"), ("inf", "row_sums")):
+        for route in ("single", "grid"):
+            require(res["steps"][f"lange_{kind}"][f"{route}_launches"][name] > 0,
+                    f"pslange {kind} ({route}) did not launch {name}")
+    torch.cuda.synchronize()
+    par.mesh.destroy()
+    return launches
+
 # the serve chaos check's flight-recorder dump (git ignores this file)
 FLIGHT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "flight_records.json")
@@ -2687,7 +3205,7 @@ def main() -> int:
     paths = {"posv": full_path(), "general": full_general_path(),
              "serve": full_serve_path(), "eig": full_eig_path(),
              "tester": full_tester_path(), "dist": full_dist_path(),
-             "dist_eig": full_dist_eig_path()}
+             "dist_eig": full_dist_eig_path(), "compat": full_compat_path()}
     path_shapes_phase(set(cn.LAUNCHED), stats)
     kernels = []
     for name in ("col_reduce", "row_sums"):
@@ -2697,8 +3215,9 @@ def main() -> int:
             "replaces": REPLACES[name],
             # the serve and eig paths launch neither kernel (their counts,
             # 0, are kept in launches_by_path); the tester's norm and
-            # gecondest rows, the distributed norms and phase 13's scaling
-            # and gates do
+            # gecondest rows, the distributed norms, phase 13's scaling
+            # and gates, and phase 14's p?lange, condition estimates and
+            # gates do
             "launches": sum(p[name] for p in paths.values()),
             "launches_by_path": {path: p[name] for path, p in paths.items()},
             "max_abs_err": stats[name]["max_abs_err"],

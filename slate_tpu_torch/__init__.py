@@ -19,8 +19,11 @@ escalation-ladder engine
 serving queue with admission control, executor pool, flight recorder), the
 test-matrix generator (:mod:`slate_tpu_torch.matgen`), the emulated-f64 gemm and
 refinement solves (``gemm_f64emu``/``gesv_f64ir``/``posv_f64ir``), the routine
-tester (``python -m slate_tpu_torch.testing``) and the LAPACK-style API
-(:mod:`slate_tpu_torch.lapack_api`).  Entry
+tester (``python -m slate_tpu_torch.testing``), the LAPACK- and ScaLAPACK-style
+APIs (:mod:`slate_tpu_torch.lapack_api`, :mod:`slate_tpu_torch.scalapack_api`),
+the native host runtime (:mod:`slate_tpu_torch.native`) and the printing,
+checkpoint and debug utilities (``print_matrix``, ``save_matrix`` /
+``load_matrix``, :mod:`slate_tpu_torch.utils.debug`).  Entry
 points place new data on ``cuda`` unless a ``device`` is given; matrix and
 triangular norms of real f32/f64 data on the card run hand-written CUDA kernels
 (:mod:`slate_tpu_torch.ops.cuda_norms`).  It imports neither JAX nor the JAX
@@ -62,11 +65,13 @@ from . import simplified
 from .robust import (FaultPlan, FaultSpec, RetryPolicy, SolveReport,
                      reduce_info)
 from .serve import gels_batched, gesv_batched, posv_batched
-from .utils import trace
 from . import matgen
+from . import native
+from .utils import debug, load_matrix, print_matrix, save_matrix, trace
 from .matgen import generate_matrix
 from .ops.f64emu import gemm_f64emu, gesv_f64ir, posv_f64ir
 from . import lapack_api
+from . import scalapack_api
 
 __version__ = "0.1.0"
 VERSION = 2026_07_00   # yyyymmrr, the reference's integer form (version.cc)

@@ -141,7 +141,7 @@ class MatrixStorage:
 
     __slots__ = ("array", "mb", "nb", "tile_rank", "grid", "kind", "p", "q",
                  "order", "default_rank_map", "mb_sizes", "nb_sizes",
-                 "mb_offs", "nb_offs", "owned", "_whole", "__weakref__")
+                 "mb_offs", "nb_offs", "owned", "_whole", "pool", "__weakref__")
 
     def __init__(self, array: torch.Tensor, mb: int, nb: int,
                  p: int = 1, q: int = 1, order: GridOrder = GridOrder.Col,
@@ -164,7 +164,10 @@ class MatrixStorage:
         self.tile_rank = tile_rank or grid_funcs.process_2d_grid(self.order, self.p, self.q)
         self.grid = grid
         self.kind = kind
+        self.pool = None
         self.place_on_grid()
+        if _pool_tracking:
+            _register_storage(self)
 
     def on_grid(self) -> bool:
         """Whether this storage lives on a process grid of at least
@@ -384,15 +387,36 @@ class BaseMatrix:
         """(order, p, q) of the process grid (BaseMatrix.hh:161-164)."""
         return self.storage.order, self.storage.p, self.storage.q
 
+    def _root_default_map(self) -> bool:
+        """Whether this view is its storage's root with the default 2D
+        block-cyclic map on a uniform tile grid (the native fast path)."""
+        st = self.storage
+        return (self.op == Op.NoTrans and self.ioffset == 0 and self.joffset == 0
+                and st.default_rank_map and st.mb_sizes is None
+                and st.nb_sizes is None)
+
     def owner_map(self) -> np.ndarray:
         """(mt, nt) int32 array of tile owners — the materialized tile directory
-        (MatrixStorage.hh's map), through tileRank so view semantics stay exact."""
+        (MatrixStorage.hh's map).  Root views use the native runtime's fill
+        (:mod:`slate_tpu_torch.native`); transposed, offset, non-uniform and
+        custom-map views go through tileRank so the view semantics stay exact."""
+        if self._root_default_map():
+            from .. import native
+
+            order, p, q = self.gridinfo()
+            return native.owner_map(self.mt, self.nt, p, q, order)
         return np.array([[self.tileRank(i, j) for j in range(self.nt)]
                          for i in range(self.mt)], dtype=np.int32).reshape(
                              self.mt, self.nt)
 
     def local_tiles(self, rank: int) -> np.ndarray:
-        """(k, 2) tile indices owned by ``rank``."""
+        """(k, 2) tile indices owned by ``rank`` (the per-rank directory walk
+        the reference does when enumerating local tiles)."""
+        if self._root_default_map():
+            from .. import native
+
+            order, p, q = self.gridinfo()
+            return native.local_tiles(self.mt, self.nt, p, q, rank, order)
         ii, jj = np.nonzero(self.owner_map() == rank)
         return np.stack([ii, jj], axis=1).astype(np.int64)
 
@@ -743,6 +767,58 @@ class HermitianBandMatrix(BaseBandMatrix):
         super().__init__(n, n, kl, ku, nb, **kw)
         self.uplo = uplo
         self.kd = kd
+
+
+# ---------------------------------------------------------------------------
+# workspace-pool accounting (reference Memory.cc + reserveDeviceWorkspace): the
+# caching allocator owns the device memory, so the pool tracks tile-granular
+# budget for the debug invariants (Debug::printNumFreeMemBlocks).  Opt-in —
+# nothing is tracked unless enabled — because drivers build wrappers in hot
+# paths.
+
+_pool_tracking = False
+_live_storages: Any = None
+
+
+def enable_pool_tracking(on: bool = True) -> None:
+    """Track every MatrixStorage built from now on in a per-storage
+    :class:`~slate_tpu_torch.native.MemoryPool` (one block per tile) and a
+    process-wide weak registry — the data behind
+    ``utils.debug.check_no_leaks`` and :func:`live_workspace_report`."""
+    global _pool_tracking, _live_storages
+    _pool_tracking = bool(on)
+    if on and _live_storages is None:
+        import weakref
+
+        _live_storages = weakref.WeakSet()
+
+
+def _register_storage(s: MatrixStorage) -> None:
+    from .. import native
+
+    arr = s.array
+    mt = -(-arr.shape[-2] // s.mb) if arr.ndim >= 2 else 1
+    nt = -(-arr.shape[-1] // s.nb) if arr.ndim >= 2 else 1
+    # capacity = the storage's resident tiles; blocks are allocated only for
+    # transient workspace (drivers may pool.alloc()/free() around scratch), so
+    # a healthy storage keeps in_use == 0 and check_no_leaks stays usable
+    s.pool = native.MemoryPool(s.mb * s.nb * arr.element_size(), max(mt * nt, 1))
+    _live_storages.add(s)
+
+
+def live_workspace_report():
+    """(n_storages, total_resident_bytes) across live tracked storages — the
+    Debug::printNumFreeMemBlocks analogue (capacity = resident tiles; any
+    nonzero pool.in_use on top is outstanding workspace)."""
+    if not _live_storages:
+        return 0, 0
+    total = count = 0
+    for s in list(_live_storages):
+        pool = s.pool
+        if pool is not None:
+            total += pool.capacity * pool.block_bytes
+            count += 1
+    return count, total
 
 
 # ---------------------------------------------------------------------------

@@ -56,8 +56,16 @@ def _verbose(name, *shapes):
 
 
 def _as(dtype, dev, *arrays):
-    """The operands as tensors of ``dtype`` on ``dev``."""
-    return [torch.tensor(np.asarray(a, dtype=dtype), device=dev) for a in arrays]
+    """The operands as tensors of ``dtype`` on ``dev`` (copies; one host
+    copy on the card)."""
+    return [torch.tensor(np.asarray(a, dtype=dtype)) if dev.type == "cpu"
+            else torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+            for a in arrays]
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """numpy copy of a tensor."""
+    return t.detach().resolve_conj().cpu().numpy()
 
 
 def _np(x):
@@ -65,7 +73,7 @@ def _np(x):
     if hasattr(x, "array"):
         x = x.array
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return _host(x)
     return np.asarray(x)
 
 

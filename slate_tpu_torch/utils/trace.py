@@ -11,7 +11,8 @@ The device-side timeline comes from ``torch.profiler``, so this module provides 
 - ``trace_block(name, **attrs)`` context manager ≅ ``trace::Block``; nests.
 - When enabled (``trace.on()``), events are recorded and can be dumped as a
   chrome://tracing JSON (``trace.finish(path)``) — the portable successor of the
-  reference's SVG writer.
+  reference's SVG writer; each region is also captured by the native runtime
+  (``native.trace_count`` / ``native.trace_dump``).
 - ``Timers`` accumulates named phase durations (the drivers' ``timers[]`` map);
   ``phase_report`` renders one hottest-first with shares.
 - Request scopes (``request_scope``, ``batch_request_scope``) stamp a serving
@@ -39,14 +40,23 @@ _t0 = time.perf_counter()
 
 
 def on() -> None:
-    """Enable tracing (reference trace::Trace::on())."""
+    """Enable tracing (reference trace::Trace::on()) and arm the native
+    capture buffer (:mod:`slate_tpu_torch.native`; its first call builds the
+    library and raises if the build fails)."""
     global _enabled
+    from .. import native
+
+    native.trace_enable(True)
     _enabled = True
 
 
 def off() -> None:
+    """Disable tracing and disarm the native capture buffer."""
     global _enabled
+    from .. import native
+
     _enabled = False
+    native.trace_enable(False)
 
 
 def is_on() -> bool:
@@ -145,14 +155,21 @@ def emit_span(name: str, t_start: float, t_end: float, **attrs) -> None:
 
 @contextlib.contextmanager
 def trace_block(name: str, **attrs):
-    """RAII-style named region (reference trace::Block, internal/Trace.hh:103-108)."""
+    """RAII-style named region (reference trace::Block, internal/Trace.hh:103-108).
+    While tracing is on, the region is also a native capture region: one
+    ``trace_begin`` and, when it opened one, exactly one ``trace_end``."""
     if not _enabled:
         yield
         return
+    from .. import native
+
     start = time.perf_counter()
+    opened = native.trace_begin(name)
     try:
         yield
     finally:
+        if opened:
+            native.trace_end()
         end = time.perf_counter()
         ev = {
             "name": name, "ph": "X", "cat": "slate",

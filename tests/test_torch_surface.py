@@ -26,17 +26,12 @@ import slate_tpu_torch
 # dotted paths relative to the package; "mod:name" is a name in a module
 # ("" the top level); a module path covers its submodules
 OWED = {
-    "10b (the host runtime and the utils tail)": [
-        "native", "utils.printing", "utils.checkpoint", "utils.debug",
-        "core.matrix:enable_pool_tracking", "core.matrix:live_workspace_report",
-        ":debug", ":load_matrix", ":print_matrix", ":save_matrix",
-        "utils:debug", "utils:load_matrix", "utils:print_matrix", "utils:save_matrix"],
     "14 (the cost audit)": [
         "obs.costaudit", "obs.scaling", "obs:AUDIT_N", "obs:AUDIT_NB",
         "obs:COLLECTIVE_OPS", "obs:RoutineSpec", "obs:audit_all", "obs:audit_routine",
         "obs:collective_volume", "obs:harvest", "obs:harvest_many", "obs:make_grid",
         "obs:spec_names", "obs:specs", "testing:cost_analysis_dict"],
-    "16 (compatibility and tooling)": ["scalapack_api", "analysis"],
+    "16 (compatibility and tooling)": ["analysis"],
 }
 REPLACED = {
     "ops.pallas_norms": "the Pallas kernels; the CUDA kernels are ops/cuda_norms.py",
