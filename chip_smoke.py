@@ -137,7 +137,21 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     forward error against an f64 normal-equations solution), pdgetri / pdgecon / pdpotri / pdpocon at 4096 f64, pssyev (vectors),
     pssyevd (values) and psgesvd at 4096 f32 — each route's seconds, its
     host<->device copy share, its error under its gate and the two routes'
-    agreement.
+    agreement;
+15. the cost audit and the analysis tier on a 1x1 NCCL grid, with the
+    kernels' launch counters set to 0 just before and read just after
+    (``col_reduce`` must launch: the ``norm_distributed`` spec):
+    ``obs.scaling.rank_passes(1)``, the scaling registry's 31 specs at n =
+    128, nb = 32, counted once (collective log, flop counter, byte counter;
+    one ``audit_row`` line each, none may fail or count no flops), the
+    collective auditor over every spec's log of that pass
+    (``analysis.collective_audit.audit_pass``, no finding), ``python -m
+    slate_tpu_torch.analysis --check`` in process (rc 0), and
+    ``gemm_allgather``, ``potrf_distributed`` and ``getrf_distributed``
+    at 16384^2 f32, nb 2048: counted flops over the spec's flop model
+    within ``AUDIT["flop_tol"]`` of ``AUDIT["flop_ratio"]``, the LAPACK ops
+    of ``AUDIT["lapack_ops"]`` counted, and the wall time counted over
+    uncounted.
 
 The last lines are a JSON line of per-kernel numbers, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -3187,6 +3201,174 @@ def full_compat_path() -> dict:
     par.mesh.destroy()
     return launches
 
+# phase 15: the cost audit and the analysis tier on a 1x1 grid.  The scaling
+# registry at its audit shape (n = 128, nb = 32), then three of its specs at
+# the smoke's full width, counted.  The counts depend on n and nb only, so
+# counted flops over the spec's model must come within flop_tol of the ratio
+# these shapes give (the H100 runs of PERF.md §5), and the LAPACK ops each
+# routine calls must count flops (FlopCounterMode alone counts them 0).
+AUDIT = {"n": N, "nb": NB, "seed": SEED + 150,
+         "full": ("gemm_allgather", "potrf_distributed", "getrf_distributed"),
+         "flop_ratio": {"gemm_allgather": 1.000, "potrf_distributed": 1.172,
+                        "getrf_distributed": 1.407},
+         "flop_tol": 0.01,
+         "lapack_ops": {"potrf_distributed": ("aten.linalg_cholesky_ex",
+                                              "aten.linalg_solve_triangular"),
+                        "getrf_distributed": ("aten.linalg_lu_factor_ex",
+                                              "aten.linalg_solve_triangular")}}
+
+
+def _sync_s(fn, device) -> float:
+    """Host seconds of ``fn()``, between two device syncs on the card."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def audit_path(device, sizes: dict = AUDIT) -> dict:
+    """Phase 15's steps on a 1x1 grid of ``device``, through the public
+    entry points: ``obs.scaling.rank_passes(1)`` (the scaling registry's 31
+    specs, counted once), ``analysis.collective_audit.audit_pass`` (every
+    spec's collective log of that pass through the auditor), the linter's
+    ``--check`` gate in process, and ``gemm_allgather`` /
+    ``potrf_distributed`` / ``getrf_distributed`` at ``sizes`` n, nb: each
+    run once uncounted (warm), then timed uncounted and counted, with its
+    counted flops over the spec's model flops."""
+    from slate_tpu_torch import parallel as par
+    from slate_tpu_torch.analysis.__main__ import main as lint_main
+    from slate_tpu_torch.analysis.collective_audit import audit_pass
+    from slate_tpu_torch.obs import costaudit, scaling
+
+    res = {}
+    t0 = time.perf_counter()
+    per_rank = scaling.rank_passes(1, device=device)
+    res["rows"] = [e["row"] for e in per_rank[0]]
+    res["registry_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tier_b = audit_pass(per_rank, 1)
+    res["tier_b_s"] = time.perf_counter() - t0
+    res["tier_b"] = {r["routine"]: r.get("findings", [r.get("error") or r.get("skipped")])
+                     for r in tier_b}
+    res["tier_b_sites"] = sum(r.get("collective_sites", 0) for r in tier_b)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res["lint_rc"] = lint_main(["--check"])
+    res["lint_s"] = time.perf_counter() - t0
+    res["lint_summary"] = out.getvalue().strip().splitlines()[-1]
+
+    n, nb = sizes["n"], sizes["nb"]
+    grid = scaling.make_grid(1, device)
+    models = {s.name: s.model_flops for s in scaling.build_specs(n, nb)}
+    f32 = torch.float32
+    A = randn((n, n), f32, device, sizes["seed"])
+    B = randn((n, n), f32, device, sizes["seed"] + 1)
+    S = spd(n, torch.Generator(device=device).manual_seed(sizes["seed"] + 2), device, f32)
+    calls = {"gemm_allgather": lambda: par.gemm_allgather(A, B, grid),
+             "potrf_distributed": lambda: par.potrf_distributed(S, grid, nb=nb),
+             "getrf_distributed": lambda: par.getrf_distributed(A, grid, nb=nb)}
+    res["full"] = {}
+    for name in sizes["full"]:
+        fn = calls[name]
+        _sync_s(fn, device)                                  # warm
+        off = _sync_s(fn, device)
+        with costaudit.counted() as run:
+            on = _sync_s(fn, device)
+        h = costaudit.harvest(run)
+        res["full"][name] = {
+            "n": n, "nb": nb, "flops": h["flops"], "model_flops": models[name],
+            "flops_over_model": h["flops"] / models[name],
+            "bytes_accessed": h["bytes_accessed"],
+            "collective_count": h["collective_count"],
+            "collective_bytes": h["collective_bytes"],
+            "off_s": off, "on_s": on, "on_over_off": on / off, "ops": run.ops,
+            "counted_us_per_op": 1e6 * (on - off) / max(run.ops, 1),
+            "flops_by_op": dict(sorted(((op, f) for op, f in run.flops_by_op.items()
+                                        if f), key=lambda kv: -kv[1]))}
+    del A, B, S
+    return res
+
+
+def check_audit_path(res: dict, sizes: dict = AUDIT) -> None:
+    rows = res["rows"]
+    from slate_tpu_torch.obs import scaling
+
+    require([r["routine"] for r in rows] == scaling.spec_names(),
+            "phase 15 did not audit the whole registry")
+    for r in rows:
+        require(not r.get("error") and not r.get("skipped"),
+                f"audit {r['routine']}: {r.get('error') or r.get('skipped')}")
+        require(r["bytes_accessed"] > 0, f"audit {r['routine']}: no bytes counted")
+        if r["model_flops"] > 0:
+            require(r["flops"] > 0, f"audit {r['routine']}: no flops counted")
+    for name, findings in res["tier_b"].items():
+        require(findings == [], f"collective audit {name}: {findings[:2]}")
+    require(list(res["tier_b"]) == scaling.spec_names(),
+            "the collective audit did not cover the registry")
+    require(res["lint_rc"] == 0, f"slate-lint --check: {res['lint_summary']}")
+    tol = sizes["flop_tol"]
+    for name, st in res["full"].items():
+        want = sizes["flop_ratio"][name]
+        require(abs(st["flops_over_model"] - want) <= tol,
+                f"audit {name}: counted / model flops {st['flops_over_model']:.4f}, "
+                f"not {want} +- {tol}")
+        for op in sizes["lapack_ops"].get(name, ()):
+            require(st["flops_by_op"].get(op, 0) > 0,
+                    f"audit {name}: {op} counted no flops")
+        require(math.isfinite(st["on_over_off"]) and st["on_over_off"] > 0,
+                f"audit {name}: no counted time")
+
+
+def full_audit_path() -> dict:
+    """Phase 15 on a 1x1 NCCL grid, with the kernels' launch counters set to 0
+    just before and read just after.  One collective of each kind on each
+    axis starts the process group and its communicators first."""
+    from slate_tpu_torch import parallel as par
+    from slate_tpu_torch.obs import scaling
+
+    grid = scaling.make_grid(1, "cuda")
+    w = torch.ones(256, device="cuda")
+    for axis in (par.ROW_AXIS, par.COL_AXIS, par.mesh.FLAT):
+        for op in ("sum", "max"):
+            par.axis_allreduce(w, grid, axis, op)
+        par.axis_allgather(w, grid, axis)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in cn.LAUNCHES:
+        cn.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    res = audit_path("cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(cn.LAUNCHES)
+    say("audit_card", nvidia_smi())
+    for r in res["rows"]:
+        say("audit_row", json.dumps({k: r.get(k) for k in (
+            "routine", "grid", "flops", "model_flops", "bytes_accessed",
+            "collective_count", "collective_bytes", "collectives", "error",
+            "skipped")}))
+    say("audit_registry_s", res["registry_s"])
+    say("audit_tier_b", json.dumps({"routines": len(res["tier_b"]),
+                                    "events": res["tier_b_sites"], "s": res["tier_b_s"],
+                                    "findings": sum(map(len, res["tier_b"].values()))}))
+    say("audit_lint", json.dumps({"rc": res["lint_rc"], "s": res["lint_s"],
+                                  "summary": res["lint_summary"]}))
+    for name, st in res["full"].items():
+        say(f"audit_full_{name}", json.dumps(st))
+    say("audit_wall_s", wall)
+    say("audit_peak_memory_gib", torch.cuda.max_memory_allocated() / 2**30)
+    say("audit_launches", json.dumps(launches))
+    check_audit_path(res)
+    require(launches["col_reduce"] > 0, "phase 15 did not launch col_reduce")
+    torch.cuda.synchronize()
+    par.mesh.destroy()
+    return launches
+
+
 # the serve chaos check's flight-recorder dump (git ignores this file)
 FLIGHT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "flight_records.json")
@@ -3205,7 +3387,8 @@ def main() -> int:
     paths = {"posv": full_path(), "general": full_general_path(),
              "serve": full_serve_path(), "eig": full_eig_path(),
              "tester": full_tester_path(), "dist": full_dist_path(),
-             "dist_eig": full_dist_eig_path(), "compat": full_compat_path()}
+             "dist_eig": full_dist_eig_path(), "compat": full_compat_path(),
+             "audit": full_audit_path()}
     path_shapes_phase(set(cn.LAUNCHED), stats)
     kernels = []
     for name in ("col_reduce", "row_sums"):
@@ -3216,8 +3399,8 @@ def main() -> int:
             # the serve and eig paths launch neither kernel (their counts,
             # 0, are kept in launches_by_path); the tester's norm and
             # gecondest rows, the distributed norms, phase 13's scaling
-            # and gates, and phase 14's p?lange, condition estimates and
-            # gates do
+            # and gates, phase 14's p?lange, condition estimates and gates,
+            # and phase 15's norm_distributed spec do
             "launches": sum(p[name] for p in paths.values()),
             "launches_by_path": {path: p[name] for path, p in paths.items()},
             "max_abs_err": stats[name]["max_abs_err"],

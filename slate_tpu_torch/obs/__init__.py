@@ -12,8 +12,12 @@
   rates and quantiles over the registry, and declared objectives evaluated
   into ``ok``/``warning``/``breach`` verdicts (``slate_slo_*`` gauges) that
   the serving queue's admission control reads.
-
-The compiled-cost audit is not ported yet (ROADMAP.md queue A item 14).
+* **Cost audit** (:mod:`.costaudit` / :mod:`.scaling`) — a counted run's
+  collective volume (the run-time collective log of ``parallel.collectives``)
+  and this rank's flops / bytes, for every ``parallel/`` routine on a P-rank
+  grid; ``python -m slate_tpu_torch.obs.scaling --update-pins`` rewrites the
+  P=2 pins.  ``scaling`` imports the parallel tier inside its spec builders,
+  so ``import slate_tpu_torch.obs`` stays light.
 """
 
 from .registry import (REGISTRY, SCHEMA, Counter, Gauge, Histogram,
@@ -21,6 +25,9 @@ from .registry import (REGISTRY, SCHEMA, Counter, Gauge, Histogram,
                        validate_metrics)
 from .spans import (INSTRUMENT_ATTR, SpanHandle, current_span, instrument,
                     on_phases, scope, span_depth)
+from .costaudit import COLLECTIVE_OPS, collective_volume, harvest, harvest_many
+from .scaling import (AUDIT_N, AUDIT_NB, RoutineSpec, audit_all,
+                      audit_routine, make_grid, spec_names, specs)
 from .timeseries import (TIMESERIES_SCHEMA, TimeSeriesSampler,
                          validate_timeseries)
 from .slo import (SLO, SLOMonitor, SLOVerdict, STATUS_CODES,
@@ -63,7 +70,9 @@ __all__ = [
     "REGISTRY", "SCHEMA", "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "quantile_from_counts", "validate_metrics", "INSTRUMENT_ATTR",
     "SpanHandle", "current_span", "instrument", "on_phases", "scope",
-    "span_depth", "TIMESERIES_SCHEMA", "TimeSeriesSampler",
+    "span_depth", "COLLECTIVE_OPS", "collective_volume", "harvest",
+    "harvest_many", "AUDIT_N", "AUDIT_NB", "RoutineSpec", "audit_all",
+    "audit_routine", "make_grid", "spec_names", "specs", "TIMESERIES_SCHEMA", "TimeSeriesSampler",
     "validate_timeseries", "SLO", "SLOMonitor", "SLOVerdict", "STATUS_CODES",
     "default_serve_slos", "counter", "gauge", "histogram", "metrics_doc",
     "export_metrics", "reset",

@@ -215,7 +215,7 @@ def _fetch(x, grid: ProcessGrid, shape, layout: str) -> torch.Tensor:
     rank the overlap of its shard with that rank's window, point to point,
     so a rank receives only its own window (the redistribute of
     src/redistribute.cc, tile by tile)."""
-    from .collectives import _exchange, _wire
+    from .collectives import _exchange, _p2p_record, _wire, is_recording
 
     m0, n0 = x.shape[-2:]
     src = layout_of(x)
@@ -248,6 +248,8 @@ def _fetch(x, grid: ProcessGrid, shape, layout: str) -> torch.Tensor:
                 recvs.append((buf, peer))
                 unpack.append((buf, fs, fe, gs, ge))
     _exchange(sends, recvs)
+    if is_recording():
+        _p2p_record("all-to-all", grid.mesh.mesh.flatten().tolist(), None, sends, recvs)
     for buf, fs, fe, gs, ge in unpack:
         blk = torch.view_as_complex(buf) if loc.is_complex() else buf
         out[fs - r0:fe - r0, gs - c0:ge - c0] = blk
@@ -354,7 +356,7 @@ def transpose_local(local: torch.Tensor, grid: ProcessGrid, m: int, n: int,
     m×n A whose block-layout shard is ``local``: every rank sends each other
     rank the piece of its block that lands in that rank's block of the
     transpose (one all-to-all of unequal blocks, point to point)."""
-    from .collectives import _exchange, _wire
+    from .collectives import _exchange, _p2p_record, _wire, is_recording
 
     i, j = grid.my_coords
     (r0, r1), (c0, c1) = bounds(grid, m, n)
@@ -384,6 +386,8 @@ def transpose_local(local: torch.Tensor, grid: ProcessGrid, m: int, n: int,
                 recvs.append((buf, peer))
                 unpack.append((buf, fs, fe, gs, ge))
     _exchange(sends, recvs)
+    if is_recording():
+        _p2p_record("all-to-all", grid.mesh.mesh.flatten().tolist(), None, sends, recvs)
     for buf, fs, fe, gs, ge in unpack:
         blk = torch.view_as_complex(buf) if local.is_complex() else buf
         blk = blk.transpose(0, 1)

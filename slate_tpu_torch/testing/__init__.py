@@ -9,5 +9,14 @@ the reference's single ``tester`` binary with its routine dispatch table
 from .sweeper import ParamSweep, TestResult, format_table, parse_dims, parse_list
 from .routines import ROUTINES, run_routine
 
+
+def cost_analysis_dict(run) -> dict:
+    """The counted analogue of XLA's ``Compiled.cost_analysis()``: a run
+    counted by ``obs.costaudit.counted`` as ``{"flops": ..., "bytes
+    accessed": ...}``, in XLA's key spelling, so cost pins read the same
+    keys in both packages."""
+    return {"flops": float(run.flops), "bytes accessed": float(run.bytes_accessed)}
+
+
 __all__ = ["ParamSweep", "TestResult", "format_table", "parse_dims", "parse_list",
-           "ROUTINES", "run_routine"]
+           "ROUTINES", "run_routine", "cost_analysis_dict"]

@@ -25,20 +25,26 @@ import slate_tpu_torch
 
 # dotted paths relative to the package; "mod:name" is a name in a module
 # ("" the top level); a module path covers its submodules
-OWED = {
-    "14 (the cost audit)": [
-        "obs.costaudit", "obs.scaling", "obs:AUDIT_N", "obs:AUDIT_NB",
-        "obs:COLLECTIVE_OPS", "obs:RoutineSpec", "obs:audit_all", "obs:audit_routine",
-        "obs:collective_volume", "obs:harvest", "obs:harvest_many", "obs:make_grid",
-        "obs:spec_names", "obs:specs", "testing:cost_analysis_dict"],
-    "16 (compatibility and tooling)": ["analysis"],
-}
+OWED = {}
 REPLACED = {
     "ops.pallas_norms": "the Pallas kernels; the CUDA kernels are ops/cuda_norms.py",
     "ops.norms:USE_PALLAS": "the CUDA kernels run on every CUDA tensor, no switch",
     "testing.driver:x64_scope": "torch has float64 on every device, no scope",
     "parallel.mesh:shard_map": "the jax.shard_map version adapter; the port runs "
                                "one process per rank",
+    "obs.costaudit:Instr": "a parsed HLO instruction; the port audits run-time "
+                           "collective logs, it compiles no HLO",
+    "obs.costaudit:parse_computations": "splits compiled HLO text; the port has "
+                                        "no compiled HLO",
+    "obs.costaudit:module_num_partitions": "reads the HLO module header; a "
+                                           "run's rank count is its grid's",
+    "analysis.collective_audit:audit_hlo": "audits HLO text; audit_log takes its "
+                                           "place over the ranks' run-time logs",
+    "analysis.collective_audit:audit_compiled": "audits a jax Compiled; the port "
+                                                "runs each routine (audit_log)",
+    "analysis:audit_hlo": "re-export of collective_audit.audit_hlo (audit_log)",
+    "analysis:audit_compiled": "re-export of collective_audit.audit_compiled "
+                               "(audit_log)",
 }
 
 
