@@ -151,7 +151,22 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     at 16384^2 f32, nb 2048: counted flops over the spec's flop model
     within ``AUDIT["flop_tol"]`` of ``AUDIT["flop_ratio"]``, the LAPACK ops
     of ``AUDIT["lapack_ops"]`` counted, and the wall time counted over
-    uncounted.
+    uncounted;
+16. the C API (``slate_tpu_torch/csrc/slate_c_api.cpp`` over
+    ``slate_tpu_torch/c_api.py``), with the kernels' launch counters set to 0
+    just before and read just after: ``tests/c_api_check.c``,
+    ``examples/c/ex05_blas.c`` and ``examples/c/example_gesv.c`` compiled
+    with gcc against the port's library and run on cuda (every check ``ok``,
+    ``grid-posv`` skipped on one rank), ``examples_torch/run_tests.py
+    --device cuda`` (19/19, six at a time), then through the same library
+    loaded in this process: ``slate_sposv`` on the posv main path's matrix,
+    ``slate_sgesv`` and ``slate_sgemm`` at 16384 f32 (backward error, the
+    factor and the kept triangle, 1e-5 of the float64 product) and
+    ``slate_dlange`` '1', 'i', 'f', 'm' at 16384^2 f64 (1e-12 of float64; '1'
+    must launch ``col_reduce`` and 'i' ``row_sums``), each C call beside the
+    Python p* call it wraps on the same matrix, their ratio the boundary's
+    cost; the path's launches are the C calls' own.  Also timed: three ways
+    of writing a row-major 1 GiB result into a column-major host buffer.
 
 The last lines are a JSON line of per-kernel numbers, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -1236,19 +1251,24 @@ def header() -> dict:
     say("float32_matmul_precision", precision)
     require(tf32 is False, "TF32 matmuls are on")
     require(precision == "highest", f"float32 matmul precision {precision!r}")
-    # the CUDA kernels (nvcc) and the native host runtime (g++) build together
+    # the CUDA kernels (nvcc), the native host runtime and the C API (g++)
+    # build together
     from concurrent.futures import ThreadPoolExecutor
-    from slate_tpu_torch import native
+    from slate_tpu_torch import c_api, native
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as ex:
+    with ThreadPoolExecutor(2) as ex:
         host = ex.submit(lambda: (native.build(), time.perf_counter() - t0))
+        capi = ex.submit(lambda: (c_api.build(), time.perf_counter() - t0))
         path = cn.build()
         say("kernel_build_s", time.perf_counter() - t0)
         host_path, host_s = host.result()
+        capi_path_, capi_s = capi.result()
     say("kernel_library", path)
     say("native_build_s", host_s)
     say("native_library", host_path)
+    say("c_api_build_s", capi_s)
+    say("c_api_library", capi_path_)
     for line in cn.BUILD_LOG.splitlines():
         if "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -3369,6 +3389,340 @@ def full_audit_path() -> dict:
     return launches
 
 
+# phase 16: the C API (``csrc/slate_c_api.cpp`` over ``c_api.py``) on the card.
+# (a) real C programs linked against the port's library, and the port's
+# examples, each in its own process; (b) the posv main path's matrix and the
+# smoke's full-width operands through the same library loaded in this process
+# (ctypes), each C call beside the Python p* call it wraps (no grid), on the
+# same inputs: the C-over-Python ratio is the boundary's cost.
+CAPI = {"n": N, "nrhs": NRHS, "seed": SEED + 160,
+        "programs": {"c_api_check": ("tests/c_api_check.c", "C_API PASS"),
+                     "ex05_blas": ("examples/c/ex05_blas.c", "ex05 OK"),
+                     "example_gesv": ("examples/c/example_gesv.c", "PASS")},
+        "examples": 19, "example_jobs": 6, "timeout": 600, "lange_rtol": 1e-12,
+        # slate_sgemm's |C - ref|_F / |ref|_F: about u * sqrt(k) = 7.6e-6 for
+        # f32 at k = 16384; a dropped beta * C0 term (2.6e-3 of ref) or a
+        # wrong alpha is far above it
+        "gemm_rtol": 1e-5}
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def c_programs(lib_path: str, device, out_dir: str, sizes: dict = CAPI) -> dict:
+    """Each C program of ``sizes["programs"]`` compiled with gcc against the
+    library, then all run at once on ``device`` (``SLATE_TPU_TORCH_DEVICE``)
+    with this interpreter's ``sys.path``: its exit code, seconds, whether its
+    pass line printed, and c_api_check's per-check verdicts."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from slate_tpu_torch import c_api
+
+    lib_dir, name = os.path.dirname(lib_path), os.path.basename(lib_path)[3:-3]
+    env = c_api.child_env(str(device))
+
+    def run(key):
+        src, marker = sizes["programs"][key]
+        exe = os.path.join(out_dir, key)
+        subprocess.run(["gcc", os.path.join(REPO, src), "-I", os.path.join(REPO, "include"),
+                        "-L", lib_dir, f"-l{name}", f"-Wl,-rpath,{lib_dir}", "-lm", "-o", exe],
+                       capture_output=True, text=True, timeout=120, check=True)
+        t0 = time.perf_counter()
+        proc = subprocess.run([exe], capture_output=True, text=True, timeout=sizes["timeout"],
+                              env=env)
+        words = [ln.split() for ln in proc.stdout.splitlines()]
+        res = {"rc": proc.returncode, "s": time.perf_counter() - t0,
+               "passed": marker.split() in words,
+               "stderr": proc.stderr[-1500:] if proc.returncode else ""}
+        if key == "c_api_check":
+            res["checks"] = {w[0]: "skipped" if w[1] == "skipped" else w[-1]
+                             for w in words if len(w) >= 2 and w[0] != "C_API"}
+        return res
+
+    with ThreadPoolExecutor(len(sizes["programs"])) as pool:
+        futures = {key: pool.submit(run, key) for key in sizes["programs"]}
+        return {key: f.result() for key, f in futures.items()}
+
+
+def run_examples(device, sizes: dict = CAPI) -> dict:
+    """``examples_torch/run_tests.py --device <device>`` (``example_jobs`` at
+    a time): exit code, seconds, the pass count it printed and the failing
+    lines."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, os.path.join(REPO, "examples_torch", "run_tests.py"),
+                          "--device", str(device), "--jobs", str(sizes["example_jobs"])],
+                         capture_output=True, text=True, timeout=sizes["timeout"])
+    m = re.search(r"(\d+)/(\d+) examples pass", run.stdout)
+    return {"rc": run.returncode, "s": time.perf_counter() - t0,
+            "passed": int(m.group(1)) if m else 0, "count": int(m.group(2)) if m else 0,
+            "failed": [ln for ln in run.stdout.splitlines() if ln.endswith("FAILED")],
+            "tail": "" if run.returncode == 0 else run.stdout[-2000:] + run.stderr[-2000:]}
+
+
+def capi_calls(lib, device, sizes: dict = CAPI) -> dict:
+    """The full-width C calls through ``lib`` (the library in this process):
+    ``slate_sposv`` on the posv main path's matrix, ``slate_sgesv``,
+    ``slate_sgemm`` and ``slate_dlange`` ('1', 'i', 'f', 'm') on f64 data.
+    Each C call and the Python p* call it wraps (``scalapack_api``, no grid,
+    on the C-order copy of the same matrix) run in the order C, Python,
+    Python, C; each keeps its faster time.  Operands live on the host in
+    column-major buffers, as a C caller holds them; results are checked on
+    ``device``.  Each step records the norm kernels' launches."""
+    from slate_tpu_torch import scalapack_api as sa
+
+    f32, f64 = torch.float32, torch.float64
+    n, k = sizes["n"], sizes["nrhs"]
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def colmajor(T):
+        """T in a column-major host buffer (transposed on the device)."""
+        return T.mT.contiguous().cpu().numpy().T
+
+    def d(x):
+        """A host result on the device (a column-major one transposed there)."""
+        if x.flags.f_contiguous and not x.flags.c_contiguous:
+            return torch.from_numpy(x.T).to(dev).mT
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        return r, time.perf_counter() - t0
+
+    steps = {}
+
+    def compare(key, c_call, py_call, reset=None):
+        """C, Python, Python, C; the launches of the first C call
+        (``launches``) and of both (``c_launches``, what the phase counts:
+        the Python calls and the checks are not the C API's)."""
+        c_s, py_s, out = [], [], {"c_launches": dict.fromkeys(cn.LAUNCHES, 0)}
+        for which in ("c", "py", "py", "c"):
+            if reset is not None and which == "c":
+                reset()
+            before = dict(cn.LAUNCHES)
+            r, s = timed(c_call if which == "c" else py_call)
+            if which == "c":
+                c_s.append(s)
+                delta = {x: cn.LAUNCHES[x] - before[x] for x in before}
+                for x in delta:
+                    out["c_launches"][x] += delta[x]
+                out.setdefault("launches", delta)
+                out.setdefault("c_result", r)
+            else:
+                py_s.append(s)
+                out.setdefault("py_result", r)
+        out.update(c_s=min(c_s), py_s=min(py_s), c_all_s=c_s, py_all_s=py_s,
+                   c_over_py=min(c_s) / min(py_s))
+        steps[key] = out
+        return out
+
+    # sposv 'l': the posv main path's matrix and right-hand sides (phase 1)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    S = spd(n, gen, dev, f32)
+    B = torch.randn((n, k), generator=gen, device=dev, dtype=f32)
+    s_np, b_np = S.cpu().numpy(), B.cpu().numpy()
+    a_f, b_f = colmajor(S), colmajor(B)
+    a_keep, b_keep = a_f.copy(order="F"), b_f.copy(order="F")
+
+    def reset_posv():
+        np.copyto(a_f, a_keep)
+        np.copyto(b_f, b_keep)
+    st = compare("sposv", lambda: lib.slate_sposv(b"l", n, k, a_f.ctypes.data, n,
+                                                  b_f.ctypes.data, n),
+                 lambda: sa.psposv("l", s_np, b_np, device=dev), reset_posv)
+    X = d(b_f)
+    V = randn((n, PROBES), f32, dev, sizes["seed"])
+    L = torch.tril(d(a_f))
+    st.update(info=st.pop("c_result"), py_info=st.pop("py_result")[1],
+              error=backward_error(S, X, B), gate=gate(f32, n),
+              factor_error=tfro(torch.matmul(L, torch.matmul(L.mT, V)) - torch.matmul(S, V))
+              / (tfro(S) * tfro(V)),
+              upper_kept=torch.equal(torch.triu(d(a_f), 1), torch.triu(S, 1)))
+    del S, X, L, s_np, a_f, a_keep
+
+    # sgesv: a general matrix, the same right-hand sides
+    G = randn((n, n), f32, dev, sizes["seed"] + 1)
+    g_np = G.cpu().numpy()
+    g_f, g_keep = colmajor(G), None
+    g_keep = g_f.copy(order="F")
+    ipiv = np.zeros(n, np.int64)
+
+    def reset_gesv():
+        np.copyto(g_f, g_keep)
+        np.copyto(b_f, b_keep)
+    st = compare("sgesv", lambda: lib.slate_sgesv(n, k, g_f.ctypes.data, n, ipiv.ctypes.data,
+                                                  b_f.ctypes.data, n),
+                 lambda: sa.psgesv(g_np, b_np, device=dev), reset_gesv)
+    st.update(info=st.pop("c_result"), py_info=st.pop("py_result")[2],
+              error=backward_error(G, d(b_f), B), gate=gate(f32, n),
+              ipiv_in_range=bool(ipiv.min() >= 1 and ipiv.max() <= n))
+    del G, g_np, g_f, g_keep, b_f, b_keep, B
+
+    # sgemm: C = 1.5 A B - 0.5 C0, against the float64 product on the device
+    A = randn((n, n), f32, dev, sizes["seed"] + 2)
+    Bm = randn((n, n), f32, dev, sizes["seed"] + 3)
+    C0 = randn((n, n), f32, dev, sizes["seed"] + 4)
+    a_np, bm_np, c_np = A.cpu().numpy(), Bm.cpu().numpy(), C0.cpu().numpy()
+    af, bf, cf = colmajor(A), colmajor(Bm), colmajor(C0)
+    c_keep = cf.copy(order="F")
+    st = compare("sgemm", lambda: lib.slate_sgemm(b"n", b"n", n, n, n, 1.5, af.ctypes.data, n,
+                                                  bf.ctypes.data, n, -0.5, cf.ctypes.data, n),
+                 lambda: sa.psgemm("n", "n", 1.5, a_np, bm_np, -0.5, c_np, device=dev),
+                 lambda: np.copyto(cf, c_keep))
+    ref = torch.matmul(A.double(), Bm.double()).mul_(1.5).sub_(C0.double(), alpha=0.5)
+    st.update(info=st.pop("c_result"), error=tfro(d(cf).double() - ref) / tfro(ref),
+              gate=sizes["gemm_rtol"])
+    st["writeback_s"] = writeback(cf, st.pop("py_result"), dev)
+    del A, Bm, C0, a_np, bm_np, c_np, af, bf, cf, c_keep, ref
+
+    # dlange on a 16384^2 f64 matrix: '1' launches col_reduce, 'i' row_sums
+    D = randn((n, n), f64, dev, sizes["seed"] + 5)
+    d_np, d_f = D.cpu().numpy(), colmajor(D)
+    want = {"1": float(D.abs().sum(0).max()), "i": float(D.abs().sum(1).max()),
+            "f": float(torch.linalg.matrix_norm(D)), "m": float(D.abs().max())}
+    for c in "1ifm":
+        st = compare(f"dlange_{c}", lambda: lib.slate_dlange(c.encode(), n, n, d_f.ctypes.data, n),
+                     lambda: sa.pdlange(c, d_np, device=dev))
+        st.update(value=st.pop("c_result"), py_value=st.pop("py_result"), want=want[c])
+        st["rel_error"] = abs(st["value"] - want[c]) / want[c]
+    del D, d_np, d_f
+    return steps
+
+
+def writeback(dst: np.ndarray, src: np.ndarray, dev) -> dict:
+    """Seconds to write a row-major host result into a column-major host
+    buffer three ways: numpy's strided copy, torch's CPU copy, and a trip
+    through the device (up, transposed there, down)."""
+    def host_view():
+        return torch.from_numpy(dst.T)
+
+    ways = {"numpy": lambda: np.copyto(dst, src),
+            "torch_cpu": lambda: host_view().copy_(torch.from_numpy(src).T),
+            "device": lambda: host_view().copy_(torch.from_numpy(src).to(dev).mT.contiguous())}
+    rng = np.random.default_rng(SEED)
+    at = tuple(rng.integers(0, size, 4096) for size in src.shape)
+    out = {}
+    for key, fn in ways.items():
+        dst.fill(0)
+        t0 = time.perf_counter()
+        fn()
+        out[key] = time.perf_counter() - t0
+        require(np.array_equal(dst[at], src[at]), f"write-back {key} is wrong")
+    out["threads"] = torch.get_num_threads()
+    return out
+
+
+def capi_path(device, sizes: dict = CAPI, programs: bool = True, tmp_dir=None) -> dict:
+    """Phase 16 on ``device``: build the library; with ``programs`` the C
+    programs and the examples (a), side by side, then the full-width calls in
+    this process (b), the runtime's device set to ``device`` first."""
+    import shutil
+    import tempfile
+
+    from slate_tpu_torch import c_api
+
+    out = {}
+    t0 = time.perf_counter()
+    path = c_api.build()
+    out["build_s"] = time.perf_counter() - t0
+    out["library"] = path
+    if programs:
+        from concurrent.futures import ThreadPoolExecutor
+
+        tmp = tempfile.mkdtemp(dir=tmp_dir)
+        try:
+            with ThreadPoolExecutor(2) as pool:      # the programs beside the examples
+                progs = pool.submit(c_programs, path, device, tmp, sizes)
+                examples = pool.submit(run_examples, device, sizes)
+                out["programs"], out["examples"] = progs.result(), examples.result()
+        finally:
+            shutil.rmtree(tmp)
+    os.environ[c_api.DEVICE_ENV] = str(device)
+    lib = c_api.load(path)
+    require(lib.slate_init() == 0, "slate_init failed")
+    out["version"] = lib.slate_version().decode()
+    out["device"] = str(c_api.runtime().device)
+    out["steps"] = capi_calls(lib, device, sizes)
+    lib.slate_finalize()
+    return out
+
+
+def check_capi_path(res: dict, sizes: dict = CAPI, programs: bool = True) -> None:
+    require(res["version"] == "slate_tpu_torch-c-api 2.0", f"version {res['version']}")
+    if programs:
+        for key, pr in res["programs"].items():
+            require(pr["rc"] == 0 and pr["passed"], f"C program {key}: rc {pr['rc']}, "
+                    f"{pr.get('checks')} {pr['stderr']}")
+        checks = res["programs"]["c_api_check"]["checks"]
+        require(checks.pop("grid-posv") == "skipped" and set(checks.values()) == {"ok"},
+                f"c_api_check: {checks}")
+        ex = res["examples"]
+        require(ex["rc"] == 0 and ex["passed"] == ex["count"] == sizes["examples"],
+                f"examples_torch: {ex['passed']}/{ex['count']} {ex['failed']} {ex['tail']}")
+    st = res["steps"]
+    for key in ("sposv", "sgesv"):
+        require(st[key]["info"] == 0 and st[key]["error"] <= st[key]["gate"],
+                f"slate_{key}: info {st[key]['info']}, backward error {st[key]['error']:.3e}")
+    require(st["sposv"]["factor_error"] <= st["sposv"]["gate"] and st["sposv"]["upper_kept"],
+            "slate_sposv: the factor in A is wrong or the upper triangle was written")
+    require(st["sgesv"]["ipiv_in_range"], "slate_sgesv: pivots out of range")
+    require(st["sgemm"]["info"] == 0 and st["sgemm"]["error"] <= st["sgemm"]["gate"],
+            f"slate_sgemm: error {st['sgemm']['error']:.3e}")
+    for c in "1ifm":
+        require(st[f"dlange_{c}"]["rel_error"] <= sizes["lange_rtol"],
+                f"slate_dlange {c}: {st[f'dlange_{c}']['value']} vs {st[f'dlange_{c}']['want']}")
+
+
+def capi_launches(res: dict) -> dict:
+    """The norm kernels' launches by the C calls of phase 16 (b), both C
+    calls of each step; the p* calls they are timed against and the checks'
+    norms are left out."""
+    out = dict.fromkeys(cn.LAUNCHES, 0)
+    for st in res["steps"].values():
+        for x, k in st["c_launches"].items():
+            out[x] += k
+    return out
+
+
+def full_capi_path() -> dict:
+    """Phase 16 on the card, with the kernels' launch counters set to 0 just
+    before and read just after; the path's count is the C calls' own
+    (:func:`capi_launches`; the C programs' and the examples' launches are
+    their own processes')."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in cn.LAUNCHES:
+        cn.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    res = capi_path("cuda")
+    wall = time.perf_counter() - t0
+    every = dict(cn.LAUNCHES)
+    launches = capi_launches(res)
+    say("c_api_card", nvidia_smi())
+    for key in ("library", "build_s", "version", "device"):
+        say(f"c_api_{key}", res[key])
+    for key, pr in res["programs"].items():
+        say(f"c_api_program_{key}", json.dumps(pr))
+    say("c_api_examples", json.dumps(res["examples"]))
+    for key, st in res["steps"].items():
+        say(f"c_api_{key}", json.dumps(st))
+    say("c_api_wall_s", wall)
+    say("c_api_peak_memory_gib", torch.cuda.max_memory_allocated() / 2**30)
+    say("c_api_launches", json.dumps(launches))
+    say("c_api_launches_with_checks", json.dumps(every))
+    check_capi_path(res)
+    for c, name in (("1", "col_reduce"), ("i", "row_sums")):
+        require(res["steps"][f"dlange_{c}"]["launches"][name] > 0,
+                f"slate_dlange '{c}' did not launch {name}")
+    torch.cuda.synchronize()
+    return launches
+
+
 # the serve chaos check's flight-recorder dump (git ignores this file)
 FLIGHT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "flight_records.json")
@@ -3388,7 +3742,7 @@ def main() -> int:
              "serve": full_serve_path(), "eig": full_eig_path(),
              "tester": full_tester_path(), "dist": full_dist_path(),
              "dist_eig": full_dist_eig_path(), "compat": full_compat_path(),
-             "audit": full_audit_path()}
+             "audit": full_audit_path(), "c_api": full_capi_path()}
     path_shapes_phase(set(cn.LAUNCHED), stats)
     kernels = []
     for name in ("col_reduce", "row_sums"):
@@ -3400,7 +3754,7 @@ def main() -> int:
             # 0, are kept in launches_by_path); the tester's norm and
             # gecondest rows, the distributed norms, phase 13's scaling
             # and gates, phase 14's p?lange, condition estimates and gates,
-            # and phase 15's norm_distributed spec do
+            # phase 15's norm_distributed spec and phase 16's slate_dlange do
             "launches": sum(p[name] for p in paths.values()),
             "launches_by_path": {path: p[name] for path, p in paths.items()},
             "max_abs_err": stats[name]["max_abs_err"],

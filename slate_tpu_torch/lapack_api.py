@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import os
 import sys
+import warnings
 
 import numpy as np
 import torch
@@ -56,11 +57,22 @@ def _verbose(name, *shapes):
 
 
 def _as(dtype, dev, *arrays):
-    """The operands as tensors of ``dtype`` on ``dev`` (copies; one host
-    copy on the card)."""
-    return [torch.tensor(np.asarray(a, dtype=dtype)) if dev.type == "cpu"
-            else torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
-            for a in arrays]
+    """The operands as tensors of ``dtype`` on ``dev`` (copies; on the card
+    one host copy for a row-major operand and none for a column-major one,
+    padded or not, which is transposed on the card)."""
+    out = []
+    for a in arrays:
+        a = np.asarray(a, dtype=dtype)
+        if dev.type == "cpu":
+            out.append(torch.tensor(a))
+            continue
+        with warnings.catch_warnings():      # read-only buffers are only read
+            warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+            if a.ndim == 2 and a.strides[0] == a.itemsize and not a.flags.c_contiguous:
+                out.append(torch.from_numpy(a.T).to(dev).mT.contiguous())
+            else:
+                out.append(torch.from_numpy(np.ascontiguousarray(a)).to(dev))
+    return out
 
 
 def _host(t: torch.Tensor) -> np.ndarray:

@@ -403,9 +403,12 @@ def gels(A, BX, opts=None):
             # minimum-norm: A = L Q, x = Q^H L^{-1} b
             fac = gelqf(a, opts)
             L = fac.R().mH                                 # m x m lower
-            y = torch.linalg.solve_triangular(L, b, upper=False)
+            vec = b.ndim == 1                              # a vector b gives a vector x
+            y = torch.linalg.solve_triangular(L, b[:, None] if vec else b, upper=False)
             ypad = torch.cat([y, y.new_zeros((n - m,) + tuple(y.shape[1:]))], dim=0)
             x = unmqr("left", "n", fac, ypad)              # Q1 ypad = Q^H ypad
+            if vec:
+                x = x[:, 0]
     return write_back(BX, x) if (isinstance(BX, BaseMatrix)
                                  and as_array(BX).shape == x.shape) else x
 

@@ -73,6 +73,37 @@ def _cxx() -> str:
     return path
 
 
+def compile_once(command: List[str], path: str) -> Tuple[str, str]:
+    """Build ``path`` with ``command + ["-o", <temporary file>]`` unless it
+    exists: under a file lock in its directory (named after the library, so
+    several processes build it once), moved into place with ``os.replace``.
+    Returns (path, the compiler's output, empty when nothing was built);
+    raises :class:`SlateError` with that output when the compile fails."""
+    if os.path.exists(path):
+        return path, ""
+    build_dir = os.path.dirname(path)
+    os.makedirs(build_dir, exist_ok=True)
+    lock_name = "." + os.path.basename(path).rsplit("_", 1)[0] + ".lock"
+    with open(os.path.join(build_dir, lock_name), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(path):        # another process built it meanwhile
+                return path, ""
+            tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+            proc = subprocess.run([*command, "-o", tmp], capture_output=True, text=True,
+                                  timeout=300)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+                raise SlateError(f"{os.path.basename(path)} build failed "
+                                 f"({proc.returncode}):\n{log}")
+            os.replace(tmp, path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return path, log
+
+
 def build(src: Optional[str] = None, build_dir: Optional[str] = None) -> str:
     """Compile ``src`` (default ``native/slate_rt.cpp``) into
     ``build_dir/libslate_rt_<digest>.so`` unless that file exists, and return
@@ -90,24 +121,8 @@ def build(src: Optional[str] = None, build_dir: Optional[str] = None) -> str:
     path = os.path.join(build_dir, f"libslate_rt_{digest}.so")
     if os.path.exists(path):
         return path
-    os.makedirs(build_dir, exist_ok=True)
-    with open(os.path.join(build_dir, ".libslate_rt.lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            if os.path.exists(path):        # another process built it meanwhile
-                return path
-            tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-            proc = subprocess.run([_cxx(), *_CXXFLAGS, src, "-o", tmp],
-                                  capture_output=True, text=True, timeout=300)
-            BUILD_LOG = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-                raise SlateError(f"native runtime build failed ({proc.returncode}):\n"
-                                 f"{BUILD_LOG}")
-            os.replace(tmp, path)
-        finally:
-            fcntl.flock(lock, fcntl.LOCK_UN)
+    path, log = compile_once([_cxx(), *_CXXFLAGS, src], path)
+    BUILD_LOG = log or BUILD_LOG
     return path
 
 

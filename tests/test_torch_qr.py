@@ -235,6 +235,17 @@ def test_gels_underdetermined_minimum_norm(cplx):
     np.testing.assert_allclose(a @ x, b, rtol=1e-9, atol=1e-9)
 
 
+def test_gels_underdetermined_vector_rhs():
+    """A 1-D right-hand side of a wide system gives a 1-D minimum-norm x, as
+    the JAX package's gels does (examples/ex09 calls it so)."""
+    m, n = 8, 20
+    a, b = _gen(15, m, n), _gen(16, m, 1)[:, 0]
+    xj = np.asarray(sj.gels(a, b))
+    x = st.gels(_t(a), _t(b)).numpy()
+    assert x.shape == xj.shape == (n,)
+    assert _rel(x, xj) <= 1e-12
+
+
 @pytest.mark.parametrize("m,n,zero_column", [(60, 10, False), (8, 20, False),
                                              (60, 10, True)],
                          ids=["tall", "wide", "zero-column"])
