@@ -56,7 +56,7 @@ from ..core.types import MethodLU, Options, Target
 from ..obs import instrument
 from ..robust import (RetryPolicy, Rung, SolveReport, active, first_bad_index,
                       first_bad_index_batched, inject, run_ladder)
-from ..utils.trace import Timers, record_phases, trace_block, trace_event
+from ..utils.trace import Timers, annotate, record_phases, trace_block, trace_event
 from .chol import _dtype_name, _factor_precision, _ir_solve, _iters
 
 
@@ -341,13 +341,19 @@ def getrf(A, opts=None):
     if target == Target.Auto:
         target = Target.XLA
     timers = Timers()
-    with trace_block("getrf", m=m, n=n, target=str(target)):
-        if target == Target.XLA:
-            out, piv = _lu_factor(a)
-            perm = _ipiv_perm(piv, m, timers)
-        else:
-            out, perm = _getrf_tiled(_private_copy(a),
-                                     max(1, min(opts.block_size, m, n)), timers)
+    annotate(m=m, n=n, target=str(target))
+    if target == Target.XLA:
+        # _lu_factor's two steps, each a span timed on the card
+        with trace_block("getrf.factor", device=a.device):
+            plu, piv, _ = torch.linalg.lu_factor_ex(a)
+        with trace_block("getrf.guard", device=a.device):
+            out = _mark_lost_nan(a, plu)
+        piv = piv.cpu()             # the one host sync: waits for the factor
+        with trace_block("getrf.pivots"):
+            perm = _index(_ipiv_perm(piv, m, timers), out.device, timers)
+    else:
+        out, perm = _getrf_tiled(_private_copy(a),
+                                 max(1, min(opts.block_size, m, n)), timers)
         perm = _index(perm, out.device, timers)
     record_phases("getrf", timers)
     info = _lu_info(torch.diagonal(out, dim1=-2, dim2=-1))
@@ -555,23 +561,24 @@ def getrs(LU, perm, B, opts=None, trans=False):
         b = dist_operand(B)
         return write_back(B, getrs_distributed(LU.dist_array(), perm, b, grid))
     lu_ = as_array(LU)
-    b = as_array(B, device=lu_.device)
-    vec = b.ndim == 1
-    if vec:
-        b = b[:, None]
-    if code in ("t", "c"):
-        # op(A) x = b  =>  U^op y = b; L^op z = y; x = perm^{-1} scatter
-        op = lu_.mH if code == "c" else lu_.mT
-        y = torch.linalg.solve_triangular(op, b, upper=False)
-        z = torch.linalg.solve_triangular(op, y, upper=True, unitriangular=True)
-        if perm is not None:
-            x = torch.zeros_like(z)
-            x[_as_perm(perm, z.device)] = z
+    with trace_block("getrs", device=lu_.device):
+        b = as_array(B, device=lu_.device)
+        vec = b.ndim == 1
+        if vec:
+            b = b[:, None]
+        if code in ("t", "c"):
+            # op(A) x = b  =>  U^op y = b; L^op z = y; x = perm^{-1} scatter
+            op = lu_.mH if code == "c" else lu_.mT
+            y = torch.linalg.solve_triangular(op, b, upper=False)
+            z = torch.linalg.solve_triangular(op, y, upper=True, unitriangular=True)
+            if perm is not None:
+                x = torch.zeros_like(z)
+                x[_as_perm(perm, z.device)] = z
+            else:
+                x = z
         else:
-            x = z
-    else:
-        x = lu_factored_solve(lu_, perm, b)
-    return write_back(B, x[:, 0] if vec else x)
+            x = lu_factored_solve(lu_, perm, b)
+        return write_back(B, x[:, 0] if vec else x)
 
 
 def getrs_nopiv(LU, B, opts=None, trans=False):

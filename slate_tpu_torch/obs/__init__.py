@@ -4,8 +4,8 @@
   histograms with labels, exported as one ``metrics.json`` document (the same
   schema as the JAX package's).
 * **Span API** (:mod:`.spans`) — ``obs.scope(routine, **labels)`` wraps a driver
-  invocation: a trace region (``utils.trace.trace_block``) plus the
-  ``slate_spans_total`` counter and ``slate_span_seconds`` histogram, labeled
+  invocation: a trace region (``utils.trace.trace_block``, device-timed on a
+  CUDA argument) plus the ``slate_spans_total`` counter, labeled
   routine/dtype/shape_bucket (and ``nb`` only when passed as a keyword).
   ``obs.instrument`` is the decorator the drivers wear.
 * **Time series and SLOs** (:mod:`.timeseries`, :mod:`.slo`) — windowed

@@ -1,23 +1,25 @@
 """Span API: ``obs.scope(routine=...)`` — the one instrumentation surface.
 
-A *span* is a host-side named region that simultaneously
+A *span* is a named region that simultaneously
 
 * opens a :func:`slate_tpu_torch.utils.trace.trace_block` region (so spans land in
-  the chrome-trace timeline next to the existing phase timers and the
-  resilience layer's retry/fault instants), and
-* records into the metrics registry on close: ``slate_spans_total`` (counter)
-  and ``slate_span_seconds`` (histogram), labeled with the routine plus
-  whatever labels the caller attached (dtype, shape_bucket, nb, method, ...).
+  the chrome-trace timeline and in ``trace.spans()`` next to the existing
+  phase timers and the resilience layer's retry/fault instants, whenever
+  ``trace.recording()``), timed on the card too when the call's first tensor
+  argument lives on a CUDA device, and
+* counts the call in the metrics registry on close: ``slate_spans_total``,
+  labeled with the routine plus whatever labels the caller attached (dtype,
+  shape_bucket, nb, method, ...).
 
 Spans nest; a child records its parent's routine under the ``parent`` label
 so nested driver compositions (posv -> potrf) remain attributable.
 
 :func:`instrument` is the decorator the drivers wear: it derives
 the standard labels (dtype + shape bucket from the first array argument,
-``nb``/``method`` keyword options) and wraps the call in a scope.  Host-side
-overhead is a few dict writes per *driver call*, and the counters need no
-enable switch (unlike the trace timeline, which stays
-opt-in via ``trace.on()``).
+``nb``/``method`` keyword options, and the device of that argument) and
+wraps the call in a scope.  Host-side overhead is a few dict writes per
+*driver call*, and the counter needs no enable switch (unlike the trace
+spans, which record only under ``trace.on()`` or a running profiler).
 """
 
 from __future__ import annotations
@@ -25,8 +27,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import threading
-import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -79,7 +80,7 @@ def _wait_for(result) -> None:
 
 
 @contextlib.contextmanager
-def scope(routine: str, device_sync: bool = False, **labels):
+def scope(routine: str, device_sync: bool = False, device=None, **labels):
     """Open an observability span around a routine invocation.
 
     ::
@@ -87,14 +88,14 @@ def scope(routine: str, device_sync: bool = False, **labels):
         with obs.scope("potrf", dtype="float32"):
             ...
 
-    Labels are stringified; the span's duration lands in the
-    ``slate_span_seconds`` histogram and its count in ``slate_spans_total``.
-    The duration is host time: CUDA launches are asynchronous, so it covers
-    the device work only where the routine itself waits for the device —
-    or where ``device_sync=True`` (the serve execute stage) makes the span
-    wait for the tensor attached through the yielded :class:`SpanHandle`;
-    such spans carry a ``device_sync="true"`` label so synced and unsynced
-    timings never mix in one series::
+    Labels are stringified; the call's count lands in ``slate_spans_total``
+    and, while ``trace.recording()``, the trace span carries them.  Given a
+    CUDA ``device``, the trace span is also timed on that device's current
+    stream (``trace.trace_block``), without a wait.  With
+    ``device_sync=True`` (the serve execute stage) the span waits for the
+    tensor attached through the yielded :class:`SpanHandle` before it
+    closes; such spans carry a ``device_sync="true"`` label so synced and
+    unsynced calls never mix in one series::
 
         with obs.scope("serve.execute", device_sync=True) as sp:
             sp.set_result(driver(A, B))
@@ -110,23 +111,17 @@ def scope(routine: str, device_sync: bool = False, **labels):
         stack = _stack.spans = []
     stack.append(routine)
     handle = SpanHandle()
-    t0 = time.perf_counter()
     try:
-        with trace_block(routine, **labels):
+        with trace_block(routine, device=device, **labels):
             yield handle
             if device_sync:
                 _wait_for(handle._result)
     finally:
-        dur = time.perf_counter() - t0
         stack.pop()
         REGISTRY.counter(
             "slate_spans_total",
             "driver invocations, by routine and labels").inc(
                 routine=routine, **labels)
-        REGISTRY.histogram(
-            "slate_span_seconds",
-            "host wall time per driver invocation").observe(
-                dur, routine=routine, **labels)
 
 
 def _shape_bucket(shape) -> str:
@@ -146,15 +141,18 @@ _LABEL_KWARGS = ("nb", "method", "lu_panel", "kind", "uplo", "lookahead",
                  "batch", "bucket")
 
 
-def _derive_labels(args, kwargs) -> Dict[str, Any]:
-    """Standard label extraction for :func:`instrument`: best-effort and
+def _derive_labels(args, kwargs) -> Tuple[Dict[str, Any], Any]:
+    """Standard label extraction for :func:`instrument`, and the device of
+    the first array argument (None without one): best-effort and
     exception-free — a driver call must never fail because of telemetry."""
     labels: Dict[str, Any] = {}
+    device = None
     try:
         for a in args:
             if hasattr(a, "dtype") and hasattr(a, "shape"):
                 labels["dtype"] = str(a.dtype).removeprefix("torch.")
                 labels["shape_bucket"] = _shape_bucket(a.shape)
+                device = getattr(a, "device", None)
                 break
         for k in _LABEL_KWARGS:
             v = kwargs.get(k)
@@ -164,7 +162,7 @@ def _derive_labels(args, kwargs) -> Dict[str, Any]:
     # arguments; a driver call must never fail because of telemetry
     except Exception:
         pass
-    return labels
+    return labels, device
 
 
 def instrument(fn=None, *, routine: Optional[str] = None):
@@ -185,7 +183,8 @@ def instrument(fn=None, *, routine: Optional[str] = None):
 
         @functools.wraps(f)
         def wrapper(*args, **kwargs):
-            with scope(name, **_derive_labels(args, kwargs)):
+            labels, device = _derive_labels(args, kwargs)
+            with scope(name, device=device, **labels):
                 return f(*args, **kwargs)
 
         setattr(wrapper, INSTRUMENT_ATTR, name)

@@ -464,7 +464,7 @@ def _deliver_batch(items: Sequence[_Pending], routine: str, bucket_s: str,
         _stage_hist(obs, "slate_serve_latency_seconds",
                     "submit-to-result latency per request").observe(
                         tk.latency_s, routine=routine, lane=tk.lane)
-        if trace.is_on():
+        if trace.recording():
             # retrospective per-request stage spans: one request's lifeline,
             # stitchable from the interleaved timeline by args.trace_id
             common = {"trace_id": tk.trace_id, "routine": routine,
@@ -1030,7 +1030,7 @@ class Executor:
                         "device execute time per batch (cache share "
                         "subtracted, result waited for)").observe(
                             exec_s, executor=self.name, **inf.labels)
-            if trace.is_on():
+            if trace.recording():
                 trace.emit_span("serve.execute_batch", inf.t_pad1, t_exec1,
                                 driver=routine, bucket=bucket_s,
                                 executor=self.name)

@@ -5,14 +5,24 @@ Reference analogue: ``slate::trace`` (src/auxiliary/Trace.cc, 644 LoC) — RAII
 the per-driver ``timers[]`` phase map surfaced by the tester at --timer-level 2
 (src/heev.cc:126-212).
 
-The device-side timeline comes from ``torch.profiler``, so this module provides the
-*host-side* named-region API:
-
-- ``trace_block(name, **attrs)`` context manager ≅ ``trace::Block``; nests.
-- When enabled (``trace.on()``), events are recorded and can be dumped as a
-  chrome://tracing JSON (``trace.finish(path)``) — the portable successor of the
-  reference's SVG writer; each region is also captured by the native runtime
-  (``native.trace_count`` / ``native.trace_dump``).
+- ``trace_block(name, device=None, **attrs)`` context manager ≅ ``trace::Block``;
+  nests.  Each region is a *span*: its name and attributes, a span id, its
+  parent's id and the id of its root (the outermost open span of the thread,
+  shared by every span of one top-level call), and its host open and close as
+  raw ``time.perf_counter()`` seconds.  Given a CUDA ``device``, the span is
+  also *device-timed*: a timing ``torch.cuda.Event`` on that device's current
+  stream at open and at close, never waited on while the program runs.
+- Spans record while :func:`recording` is true: under ``trace.on()``, or while
+  a ``torch.profiler`` (or autograd profiler) records, as
+  ``torch.profiler.record_function`` behaves.  Off, a region costs one test.
+- Recorded spans stay in memory until one of two readers takes them:
+  :func:`spans` returns them as resolved records (device durations from the
+  events' ``elapsed_time``), and :func:`finish` writes them as chrome://tracing
+  JSON — the portable successor of the reference's SVG writer — with the
+  device-timed ones also on a device track of their own.
+- Only ``trace.on()`` arms the native capture (``native.trace_count`` /
+  ``native.trace_dump``) and the ``Timers`` phase synchronize: a profiled
+  run adds no synchronize and builds nothing.
 - ``Timers`` accumulates named phase durations (the drivers' ``timers[]`` map);
   ``phase_report`` renders one hottest-first with shares.
 - Request scopes (``request_scope``, ``batch_request_scope``) stamp a serving
@@ -24,6 +34,7 @@ The device-side timeline comes from ``torch.profiler``, so this module provides 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import threading
@@ -34,9 +45,12 @@ import torch
 
 _state = threading.local()
 _enabled = False
+#: recorded spans and instant events, in the order they closed
 _events: List[Dict[str, Any]] = []
 _events_lock = threading.Lock()
 _t0 = time.perf_counter()
+_span_ids = itertools.count(1)
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
 
 def on() -> None:
@@ -61,6 +75,12 @@ def off() -> None:
 
 def is_on() -> bool:
     return _enabled
+
+
+def recording() -> bool:
+    """True while spans and events record: under :func:`on`, or while a
+    ``torch.profiler`` / autograd profiler is recording."""
+    return _enabled or _profiler_enabled()
 
 
 # ---------------------------------------------------------------------------
@@ -130,57 +150,124 @@ def _stamp_request(attrs: Dict[str, Any]) -> Dict[str, Any]:
     return attrs
 
 
+# ---------------------------------------------------------------------------
+# spans: recorded while recording(), kept until spans() or finish() takes them
+# ---------------------------------------------------------------------------
+
+
+def _open_spans() -> List[Dict[str, Any]]:
+    """This thread's open spans, outermost first."""
+    stack = getattr(_state, "spans", None)
+    if stack is None:
+        stack = _state.spans = []
+    return stack
+
+
+def _timed_device(device) -> Optional[torch.device]:
+    """``device`` as a ``torch.device`` when it is a CUDA device, else None."""
+    if device is None:
+        return None
+    try:
+        device = torch.device(device)
+    except (TypeError, RuntimeError):
+        return None
+    return device if device.type == "cuda" else None
+
+
+def _event(device: torch.device):
+    """A timing event recorded on ``device``'s current stream; nothing waits
+    for it until the span is read."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def _new_span(name: str, cat: str, attrs: Dict[str, Any],
+              parent: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    sid = next(_span_ids)
+    span = {"name": name, "ph": "X", "cat": cat, "id": sid,
+            "parent": parent["id"] if parent else None,
+            "root": parent["root"] if parent else sid,
+            "tid": threading.get_ident() % 2**31}
+    attrs = _stamp_request(attrs)
+    if attrs:
+        span["args"] = {k: str(v) for k, v in attrs.items()}
+    return span
+
+
+def _keep(record: Dict[str, Any]) -> None:
+    with _events_lock:
+        _events.append(record)
+
+
 def emit_span(name: str, t_start: float, t_end: float, **attrs) -> None:
     """Record a complete span from explicit ``time.perf_counter`` stamps.
 
     The serving queue measures a request's stage boundaries as cheap host
     timestamps while the batch runs, then *retrospectively* synthesizes the
     per-request stage spans at resolve time — one request's pad/execute spans
-    overlap its batchmates', which nested context managers cannot express.
-    No-op while tracing is off; ``ts``/``dur`` land at the measured times."""
-    if not _enabled:
+    overlap its batchmates', which nested context managers cannot express,
+    so each such span is a root of its own.  No-op while not
+    :func:`recording`; the span opens and closes at the measured times."""
+    if not recording():
         return
-    attrs = _stamp_request(attrs)
-    ev = {
-        "name": name, "ph": "X", "cat": "slate.serve",
-        "ts": (t_start - _t0) * 1e6,
-        "dur": max(t_end - t_start, 0.0) * 1e6,
-        "pid": os.getpid(), "tid": threading.get_ident() % 2**31,
-    }
-    if attrs:
-        ev["args"] = {k: str(v) for k, v in attrs.items()}
-    with _events_lock:
-        _events.append(ev)
+    span = _new_span(name, "slate.serve", attrs, None)
+    span["t_open"], span["t_close"] = t_start, max(t_end, t_start)
+    _keep(span)
 
 
 @contextlib.contextmanager
-def trace_block(name: str, **attrs):
-    """RAII-style named region (reference trace::Block, internal/Trace.hh:103-108).
-    While tracing is on, the region is also a native capture region: one
-    ``trace_begin`` and, when it opened one, exactly one ``trace_end``."""
-    if not _enabled:
+def trace_block(name: str, device=None, **attrs):
+    """RAII-style named region (reference trace::Block, internal/Trace.hh:103-108),
+    recorded as a span while :func:`recording` is true.  With a CUDA
+    ``device`` the span is also timed on that device's current stream (an
+    event at open and at close, never waited on here).  Under ``trace.on()``
+    the region is also a native capture region: one ``trace_begin`` and, when
+    it opened one, exactly one ``trace_end``."""
+    if not recording():
         yield
         return
-    from .. import native
+    nat = opened = None
+    if _enabled:
+        from .. import native as nat
 
-    start = time.perf_counter()
-    opened = native.trace_begin(name)
+        opened = nat.trace_begin(name)
+    stack = _open_spans()
+    span = _new_span(name, "slate", attrs, stack[-1] if stack else None)
+    dev = _timed_device(device)
+    span["t_open"] = time.perf_counter()
+    if dev is not None:
+        span["_dev"] = dev
+        span["_open"] = _event(dev)
+        # device offsets count from the open event of the outermost
+        # device-timed span around this one on the same device
+        outer = next((s for s in stack if s.get("_dev") == dev), None)
+        span["_origin"] = (outer["_origin"] if outer is not None
+                           else (span["_open"], span["t_open"]))
+    stack.append(span)
     try:
         yield
     finally:
+        if dev is not None:
+            span["_close"] = _event(dev)
+        span["t_close"] = time.perf_counter()
+        for i in range(len(stack) - 1, -1, -1):
+            if stack[i] is span:
+                del stack[i]
+                break
         if opened:
-            native.trace_end()
-        end = time.perf_counter()
-        ev = {
-            "name": name, "ph": "X", "cat": "slate",
-            "ts": (start - _t0) * 1e6, "dur": (end - start) * 1e6,
-            "pid": os.getpid(), "tid": threading.get_ident() % 2**31,
-        }
-        attrs = _stamp_request(attrs)
-        if attrs:
-            ev["args"] = {k: str(v) for k, v in attrs.items()}
-        with _events_lock:
-            _events.append(ev)
+            nat.trace_end()
+        _keep(span)
+
+
+def annotate(**attrs) -> None:
+    """Add attributes to the innermost span open on this thread (none open:
+    a no-op) — a routine's own labels on the span its ``@instrument`` scope
+    opened."""
+    stack = getattr(_state, "spans", None)
+    if stack:
+        stack[-1].setdefault("args", {}).update(
+            {k: str(v) for k, v in attrs.items()})
 
 
 def trace_event(name: str, **attrs) -> None:
@@ -188,8 +275,8 @@ def trace_event(name: str, **attrs) -> None:
     layer uses to mark retries, fallback escalations, and injected faults so
     they line up with the surrounding ``trace_block`` regions in one timeline
     (the reference's Trace.cc has no analogue; its recovery paths are
-    invisible in the SVG).  No-op while tracing is off."""
-    if not _enabled:
+    invisible in the SVG).  No-op while not :func:`recording`."""
+    if not recording():
         return
     ev = {
         "name": name, "ph": "i", "cat": "slate.robust", "s": "t",
@@ -199,13 +286,54 @@ def trace_event(name: str, **attrs) -> None:
     attrs = _stamp_request(attrs)
     if attrs:
         ev["args"] = {k: str(v) for k, v in attrs.items()}
+    _keep(ev)
+
+
+def _resolve(span: Dict[str, Any]) -> Dict[str, Any]:
+    """A recorded span as :func:`spans` returns it; a device-timed span's
+    events are waited for here, when it is read."""
+    rec = {k: span[k] for k in ("name", "cat", "id", "parent", "root", "tid",
+                                "t_open", "t_close")}
+    rec["args"] = dict(span.get("args", {}))
+    rec.update(device=None, device_ms=None, device_open_ms=None,
+               device_close_ms=None)
+    if "_dev" in span:
+        opened, closed, origin = span["_open"], span["_close"], span["_origin"][0]
+        for ev in (origin, opened, closed):
+            ev.synchronize()
+        rec.update(device=str(span["_dev"]),
+                   device_ms=opened.elapsed_time(closed),
+                   device_open_ms=origin.elapsed_time(opened),
+                   device_close_ms=origin.elapsed_time(closed))
+    return rec
+
+
+def spans() -> List[Dict[str, Any]]:
+    """Take the recorded spans out of the buffer, resolved, in the order they
+    closed (instant events stay for :func:`finish`).
+
+    Each record holds ``name``, ``cat``, ``args`` (its attributes, as
+    strings), ``id``, ``parent`` (None at a root), ``root`` (the id shared by
+    every span of one top-level call), ``tid``, ``t_open`` / ``t_close`` (raw
+    host ``time.perf_counter()`` seconds) and, for a device-timed span,
+    ``device``, ``device_ms`` (from its open event to its close event) and
+    ``device_open_ms`` / ``device_close_ms`` (from the open event of the
+    outermost device-timed span around it: the root, for a routine's spans);
+    those four are None for a span timed on the host alone."""
+    global _events
     with _events_lock:
-        _events.append(ev)
+        taken = [e for e in _events if e["ph"] == "X"]
+        _events = [e for e in _events if e["ph"] != "X"]
+    return [_resolve(s) for s in taken]
 
 
 def finish(path: Optional[str] = None) -> Optional[str]:
-    """Write accumulated events as chrome://tracing JSON (reference
+    """Write the recorded spans and events as chrome://tracing JSON (reference
     Trace::finish writes trace_<time>.svg, Trace.cc:330-448). Returns the path.
+
+    A span is one complete event on its thread's track, its ids under
+    ``args`` (``span_id``, ``parent_id``, ``root_id``); a device-timed span is also one
+    on its device's track, placed by its offset from its origin's open.
 
     Idempotent and safe under ``off()``: the event buffer is swapped out
     atomically under the lock, so a second ``finish()`` after a flush (or a
@@ -217,8 +345,32 @@ def finish(path: Optional[str] = None) -> Optional[str]:
         if not _events:
             return None
         events, _events = _events, []
+    pid = os.getpid()
+    out: List[Dict[str, Any]] = []
+    tracks: Dict[str, int] = {}
+    for e in events:
+        if e["ph"] != "X":
+            out.append(e)
+            continue
+        rec = _resolve(e)
+        args = dict(rec["args"], span_id=rec["id"], parent_id=rec["parent"],
+                    root_id=rec["root"])
+        host = {"name": rec["name"], "ph": "X", "cat": rec["cat"],
+                "ts": (rec["t_open"] - _t0) * 1e6,
+                "dur": (rec["t_close"] - rec["t_open"]) * 1e6,
+                "pid": pid, "tid": rec["tid"], "args": args}
+        out.append(host)
+        if rec["device"] is not None:
+            tid = tracks.setdefault(rec["device"], 2**31 + len(tracks))
+            out.append(dict(host, cat=rec["cat"] + ".device", tid=tid,
+                            ts=(e["_origin"][1] - _t0) * 1e6
+                            + rec["device_open_ms"] * 1e3,
+                            dur=rec["device_ms"] * 1e3))
+    out += [{"name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+             "args": {"name": f"{dev} device time"}}
+            for dev, tid in tracks.items()]
     path = path or f"trace_{int(time.time())}.json"
-    payload = {"traceEvents": events, "displayTimeUnit": "ms"}
+    payload = {"traceEvents": out, "displayTimeUnit": "ms"}
     with open(path, "w") as f:
         json.dump(payload, f)
     return path
