@@ -166,7 +166,32 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     must launch ``col_reduce`` and 'i' ``row_sums``), each C call beside the
     Python p* call it wraps on the same matrix, their ratio the boundary's
     cost; the path's launches are the C calls' own.  Also timed: three ways
-    of writing a row-major 1 GiB result into a column-major host buffer.
+    of writing a row-major 1 GiB result into a column-major host buffer;
+17. the blocked LU with one-panel lookahead (``linalg/lu.py::_getrf_tiled``)
+    and its pivot kernels (``slate_tpu_torch/csrc/pivots.cu``): the row-move
+    lists of ``pivot_moves`` against the plain version, bit for bit, for
+    panels of 1 to 4096 columns (self swaps, repeated targets, a last square
+    panel), each applied to a permutation against ``_ipiv_perm``'s host
+    replay; ``move_rows`` against the plain version, bit for bit, in f32,
+    f64, c128 and int64 on an unaligned column range and on a vector; both
+    kernels timed at the HPL cell's shapes (N = 49152 f64, nb 256, 512 and
+    1024) beside their bounds, and ``move_rows`` held bit for bit at that
+    shape too (2048 f64 pairs over the 49152 x 47104 trailing columns of the
+    first step at nb 1024, and the perm vector); ``getrf_panel`` (cuSOLVER's
+    getrf called directly) against ``torch.linalg.lu_factor_ex`` on a 16384 x
+    1024 panel in f32, f64, c64 and c128 (equal pivots, factor within 20 eps
+    sqrt(m)); ``getrf`` on the lookahead route under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync; ``perm`` and
+    ``info`` stay on the card); the lookahead route against the library
+    route at N = 4096 (Target.Tiled) and 49152 (Target.Auto, the route and
+    panel width the HPL cell takes) f64 (probe error of A[perm] = L U under
+    20 eps sqrt(N), equal ``info``; also on a singular and a NaN matrix at
+    4096), the factor time of both routes at N = 2048 ... 49152
+    with the panel width ``Target.Auto`` takes (the crossover
+    ``LU_LOOKAHEAD_MIN``), the panel-width sweep at 49152 (256 ... 1024),
+    the route ``Target.Auto`` takes there, the peak memory and the launch
+    counts.
+    ``python3 chip_smoke.py --only lu`` runs the header and this phase alone.
 
 The last lines are a JSON line of per-kernel numbers, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -194,9 +219,12 @@ import slate_tpu_torch as slate
 from slate_tpu_torch import serve
 from slate_tpu_torch.linalg import chol
 from slate_tpu_torch.linalg import eig as leig
+from slate_tpu_torch.linalg import lu as llu
+from slate_tpu_torch.core.types import Target
 from slate_tpu_torch.serve import executor as sexec
 from slate_tpu_torch.serve import queue as squeue
 from slate_tpu_torch.ops import cuda_norms as cn
+from slate_tpu_torch.ops import cuda_pivots as cp
 from slate_tpu_torch.utils import trace
 
 # the module (the package binds the name "svd" to the driver function)
@@ -1269,9 +1297,13 @@ def header() -> dict:
     say("native_library", host_path)
     say("c_api_build_s", capi_s)
     say("c_api_library", capi_path_)
-    for line in cn.BUILD_LOG.splitlines():
-        if "Used" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    t0 = time.perf_counter()
+    say("pivot_library", cp.build())
+    say("pivot_build_s", time.perf_counter() - t0)
+    for stem, log in cn.BUILD_LOGS.items():
+        for line in log.splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"  ptxas {stem}:", line.strip())
     # the 16-byte loads in the machine code (cuobjdump ships with the toolkit)
     cuobjdump = os.path.join(os.path.dirname(cn._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
@@ -3728,12 +3760,309 @@ FLIGHT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "flight_records.json")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the pivot kernels and getrf's lookahead route
+# ---------------------------------------------------------------------------
+
+LU_ROUTE = {"check_n": (4096, 49152), "info_n": 4096,
+            "crossover_n": (2048, 4096, 8192, 16384, 49152),
+            "sweep_n": 49152, "nb_sweep": (256, 384, 512, 768, 1024), "reps": 3,
+            "move_n": 49152, "move_nb": (256, 512, 1024), "mover_shape": (4096, 3000),
+            "hpl_mover": (49152, 1024), "panel_shape": (16384, 1024)}
+# (w, mw, row0) of the pivot-list cases: one row, a last square panel (every
+# target inside it), the HPL cell's panels at nb 256 / 512 / 1024 (the width
+# Target.Auto takes there) at the top and near the bottom, and the widest
+# panel the driver takes
+PIVOT_CASES = ((1, 1, 0), (7, 7, 93), (256, 49152, 0), (512, 49152, 0),
+               (1024, 49152, 0), (512, 700, 48452), (1024, 1500, 47652),
+               (4096, 49152, 0))
+
+
+def random_ipiv(w: int, mw: int, seed: int) -> torch.Tensor:
+    """A valid LAPACK ipiv (1-based, ipiv[k] >= k + 1) of ``w`` swaps in a
+    window of ``mw`` rows, with self swaps and one target named again and
+    again; int32 on the CPU."""
+    rng = np.random.default_rng(seed)
+    piv = np.array([rng.integers(k, mw) for k in range(w)], dtype=np.int64)
+    piv[::5] = np.arange(w)[::5]
+    piv[1::7] = mw - 1
+    return torch.from_numpy((piv + 1).astype(np.int32))
+
+
+def pivot_kernel_checks(device, cases=PIVOT_CASES,
+                        mover_shape=LU_ROUTE["mover_shape"],
+                        hpl_mover=LU_ROUTE["hpl_mover"],
+                        panel_shape=LU_ROUTE["panel_shape"]) -> dict:
+    """pivot_moves and move_rows against their plain versions, bit for bit,
+    move_rows also at the HPL cell's shape (the 2 nb pairs of a first panel
+    over the n x (n - 2 nb) f64 columns the main stream moves at nb =
+    ``hpl_mover[1]``), and getrf_panel against the library LU."""
+    out = {}
+    for i, (w, mw, row0) in enumerate(cases):
+        ipiv = random_ipiv(w, mw, i)
+        got = cp.pivot_moves(ipiv.to(device), row0, mw).cpu()
+        want = cp.pivot_moves_plain(ipiv, row0, mw)
+        require(torch.equal(got, want), f"pivot_moves differs at w={w} mw={mw}")
+        perm = cp.move_rows_plain(torch.arange(row0 + mw), want)[row0:] - row0
+        replay = llu._ipiv_perm(ipiv, mw, trace.Timers())
+        require(torch.equal(perm, torch.from_numpy(replay)),
+                f"the row-move list of w={w} mw={mw} is not the host replay")
+        out[f"pivot_moves_w{w}_mw{mw}_live"] = int((want[:, 0] >= 0).sum())
+    m, ncols = mover_shape
+    row0 = m // 4
+    ipiv = random_ipiv(min(512, (m - row0) // 2), m - row0, 99)
+    moves = cp.pivot_moves(ipiv.to(device), row0, m - row0)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for dtype in (torch.float32, torch.float64, torch.complex128, torch.int64):
+        if dtype == torch.int64:
+            M = torch.randint(0, 2**62, (m, ncols + 37), generator=gen, device=device)
+        else:
+            M = torch.randn((m, ncols + 37), generator=gen, device=device, dtype=dtype)
+        k, p = M.clone(), M.clone()
+        cp.move_rows(k[:, 17:17 + ncols], moves)
+        cp.move_rows_plain(p[:, 17:17 + ncols], moves)
+        require(torch.equal(k, p), f"move_rows differs in {dtype}")
+        require(not torch.equal(k, M), f"move_rows moved nothing in {dtype}")
+    v = torch.arange(m, device=device)
+    k, p = cp.move_rows(v.clone(), moves), cp.move_rows_plain(v.clone(), moves)
+    require(torch.equal(k, p), "move_rows differs on a vector")
+    del M, k, p
+    n, nb = hpl_mover
+    moves = cp.pivot_moves(random_ipiv(nb, n, 98).to(device), 0, n)
+    out[f"move_rows_hpl_n{n}_pairs"] = moves.shape[0]
+    k = hpl_matrix(n, SEED + 1, device)
+    p = k.clone()
+    cp.move_rows(k[:, 2 * nb:], moves)
+    cp.move_rows_plain(p[:, 2 * nb:], moves)
+    require(torch.equal(k, p), f"move_rows differs on {moves.shape[0]} f64 pairs "
+                               f"over {n} rows")
+    del k, p
+    v = torch.arange(n, device=device)
+    k, p = cp.move_rows(v.clone(), moves), cp.move_rows_plain(v.clone(), moves)
+    require(torch.equal(k, p) and not torch.equal(k, v),
+            f"move_rows differs on the perm vector of {n}")
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    out.update(panel_lu_checks(device, panel_shape))
+    return out
+
+
+def panel_lu_checks(device, shape) -> dict:
+    """cuda_pivots.getrf_panel (cuSOLVER's getrf called directly on the card)
+    against ``torch.linalg.lu_factor_ex`` of the same panel, in each dtype the
+    driver takes: equal pivots and a factor within 20 eps sqrt(m) of it in
+    Frobenius norm relative to the panel."""
+    out = {}
+    m, n = shape
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    for dtype in (torch.float32, torch.float64, torch.complex64, torch.complex128):
+        P = torch.randn(shape, generator=gen, device=device, dtype=dtype)
+        lu, piv = cp.getrf_panel(P)
+        ref, ref_piv, _ = torch.linalg.lu_factor_ex(P)
+        diff = float(torch.linalg.norm(lu - ref) / torch.linalg.norm(P))
+        out[f"panel_lu_{str(dtype)[6:]}_diff"] = diff
+        gate = 20 * torch.finfo(dtype).eps * math.sqrt(m)
+        require(torch.equal(piv, ref_piv) and diff < gate,
+                f"getrf_panel differs from the library LU of a {m} x {n} {dtype} "
+                f"panel: pivots equal {torch.equal(piv, ref_piv)}, factor {diff}")
+    return out
+
+
+def pivot_kernel_times(n: int = LU_ROUTE["move_n"],
+                       nbs=LU_ROUTE["move_nb"]) -> dict:
+    """Each kernel's time on the card (CUDA events, mean of 20 calls after
+    warm-up) at the HPL cell's shapes: the list of a panel of nb columns over
+    n rows, and the rows it moves across the full width of an n x n f64
+    matrix, beside the bound (the moved rows read once and written once)."""
+    out = {}
+    A = torch.empty((n, n), dtype=torch.float64, device="cuda").uniform_(-0.5, 0.5)
+    for nb in nbs:
+        ipiv = random_ipiv(nb, n, nb).cuda()
+        out[f"pivot_moves_nb{nb}_ms"] = time_ms(lambda: cp.pivot_moves(ipiv, 0, n))
+        out[f"pivot_moves_nb{nb}_plain_ms"] = time_ms(
+            lambda: cp.pivot_moves_plain(ipiv, 0, n), reps=3)
+        moves = cp.pivot_moves(ipiv, 0, n)
+        rows = int((moves[:, 0] >= 0).sum())
+        out[f"move_rows_nb{nb}_rows"] = rows
+        out[f"move_rows_nb{nb}_ms"] = time_ms(lambda: cp.move_rows(A, moves))
+        out[f"move_rows_nb{nb}_bound_ms"] = cp.move_bound_ms(rows, n, 8)
+        out[f"move_rows_nb{nb}_plain_ms"] = time_ms(
+            lambda: cp.move_rows_plain(A, moves), reps=3)
+    del A
+    torch.cuda.empty_cache()
+    return out
+
+
+def hpl_matrix(n: int, seed: int, device) -> torch.Tensor:
+    """A uniform in (-0.5, 0.5), as HPL draws it."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand((n, n), generator=gen, device=device,
+                      dtype=torch.float64).sub_(0.5)
+
+
+def probe_error(A: torch.Tensor, LU: torch.Tensor, perm: torch.Tensor,
+                k: int = 4, block: int = 4096) -> float:
+    """||A[perm] X - L (U X)||_F / (||A||_F ||X||_F) for k random probe
+    columns, the triangles of the square factor cut out a row block at a
+    time (no n x n temporary)."""
+    n = A.shape[0]
+    gen = torch.Generator(device=A.device).manual_seed(SEED)
+    X = torch.randn((n, k), generator=gen, device=A.device, dtype=A.dtype)
+    UX, LUX = torch.empty_like(X), torch.empty_like(X)
+    for r0 in range(0, n, block):
+        UX[r0:r0 + block] = torch.triu(LU[r0:r0 + block], diagonal=r0) @ X
+    for r0 in range(0, n, block):
+        LUX[r0:r0 + block] = (torch.tril(LU[r0:r0 + block], diagonal=r0 - 1) @ UX
+                              + UX[r0:r0 + block])
+    err = torch.linalg.norm((A @ X)[perm] - LUX)
+    return float(err / (torch.linalg.norm(A) * torch.linalg.norm(X)))
+
+
+def getrf_ms(A: torch.Tensor, opts: dict, reps: int) -> list:
+    """Device time (ms, CUDA events on the caller's stream) of whole getrf
+    calls, each after the last ended."""
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = slate.getrf(A, opts)
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+        del res
+    return out
+
+
+def lu_route_checks(device, sizes: dict = LU_ROUTE) -> dict:
+    """The lookahead route against the library route: probe error, info (on
+    a diagonally dominant matrix, a singular copy and a copy with a NaN on
+    the diagonal), the route's own devices for perm and info, and no host
+    sync."""
+    out = {}
+    tiled, library = {"target": "tiled"}, {"target": "xla"}
+    n = sizes["info_n"]
+    A = hpl_matrix(n, SEED, device)
+    A.diagonal().add_(float(n))
+    sing, nan = A.clone(), A.clone()
+    sing[:, n // 3] = 0.0
+    sing[n // 3, :] = 0.0
+    nan[n // 2, n // 2] = float("nan")
+    for name, M in (("regular", A), ("singular", sing), ("nan", nan)):
+        i_t = int(slate.getrf(M, tiled)[2])
+        i_l = int(slate.getrf(M, library)[2])
+        out[f"info_{name}"] = (i_t, i_l)
+        require(i_t == i_l, f"info {i_t} (lookahead) != {i_l} (library) on {name}")
+        require((i_t == 0) == (name == "regular"), f"info {i_t} on the {name} matrix")
+    del sing, nan
+    if torch.device(device).type == "cuda":
+        slate.getrf(A, tiled)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            LU, perm, info = slate.getrf(A, tiled)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        require(perm.is_cuda and info.is_cuda and perm.dtype == torch.int64,
+                "perm and info left the card")
+        out["no_sync"] = True
+    routes = slate.obs.REGISTRY.counter("slate_lu_route_total")
+    for n in sizes["check_n"]:
+        A = hpl_matrix(n, SEED + n, device)
+        # Target.Auto itself where it takes the lookahead route, with its panel
+        # width; Tiled (block_size 256) below the crossover
+        auto = llu._lu_route(A.device.type, A.shape, Target.Auto) == "lookahead"
+        infos = []
+        for route, opts in (("lookahead", {} if auto else tiled), ("library", library)):
+            before = routes.value(route=route)
+            LU, perm, info = slate.getrf(A, opts)
+            require(routes.value(route=route) == before + 1,
+                    f"getrf with {opts} at n={n} did not take the {route} route")
+            err = probe_error(A, LU, perm)
+            out[f"probe_error_{route}_n{n}"] = err
+            infos.append(int(info))
+            gate = 20 * torch.finfo(A.dtype).eps * math.sqrt(n)
+            require(int(info) == 0 and err < gate,
+                    f"{route} at n={n}: info {int(info)}, probe error {err} (gate {gate})")
+            del LU, perm, info
+        out[f"info_n{n}"] = tuple(infos)
+        if auto:
+            out[f"auto_nb_n{n}"] = llu._panel_width(Target.Auto, 256, n, n)
+        del A
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def lu_route_times(sizes: dict = LU_ROUTE) -> dict:
+    """Factor time of both routes at each size (the crossover), the panel
+    width sweep at the HPL cell's N, the route Target.Auto takes there, its
+    peak memory and the kernels' launches on one call."""
+    out = {}
+    reps = sizes["reps"]
+    for n in sizes["crossover_n"]:
+        A = hpl_matrix(n, SEED, "cuda")
+        nb = llu._panel_width(Target.Auto, 256, n, n)     # what Auto takes there
+        lib = getrf_ms(A, {"target": "xla"}, reps + 1)[1:]
+        la = getrf_ms(A, {"target": "tiled", "block_size": nb}, reps + 1)[1:]
+        out[f"crossover_n{n}_nb"] = nb
+        out[f"crossover_n{n}_library_ms"] = statistics.median(lib)
+        out[f"crossover_n{n}_lookahead_ms"] = statistics.median(la)
+        del A
+        torch.cuda.empty_cache()
+    n = sizes["sweep_n"]
+    A = hpl_matrix(n, SEED, "cuda")
+    for nb in sizes["nb_sweep"]:
+        ms = getrf_ms(A, {"target": "tiled", "block_size": nb}, reps)
+        out[f"sweep_n{n}_nb{nb}_ms"] = ms
+    reg = slate.obs.REGISTRY.counter("slate_lu_route_total")
+    before = reg.value(route="lookahead")
+    for k in cp.LAUNCHES:
+        cp.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = slate.getrf(A)
+    torch.cuda.synchronize()
+    out["auto_route_lookahead_calls"] = reg.value(route="lookahead") - before
+    out["auto_peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["auto_launches"] = dict(cp.LAUNCHES)
+    require(out["auto_route_lookahead_calls"] == 1,
+            f"Target.Auto did not take the lookahead route at n={n}")
+    del res, A
+    torch.cuda.empty_cache()
+    return out
+
+
+def full_lu_route_path() -> dict:
+    t0 = time.perf_counter()
+    for k in cp.LAUNCHES:
+        cp.LAUNCHES[k] = 0
+    res = pivot_kernel_checks("cuda")
+    checks = dict(cp.LAUNCHES)
+    require(all(v > 0 for v in checks.values()), f"a pivot kernel did not launch: {checks}")
+    res["check_launches"] = checks
+    res.update(pivot_kernel_times())
+    res.update(lu_route_checks("cuda"))
+    res.update(lu_route_times())
+    res["phase_s"] = time.perf_counter() - t0
+    _say_all("lu", res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
     head = header()
+    if sys.argv[1:] == ["--only", "lu"]:
+        full_lu_route_path()
+        say("total_s", time.perf_counter() - t_start)
+        print(head["smi"])
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     stats = kernel_phase()
     times = timing_phase()
     small_checks()
@@ -3743,6 +4072,7 @@ def main() -> int:
              "tester": full_tester_path(), "dist": full_dist_path(),
              "dist_eig": full_dist_eig_path(), "compat": full_compat_path(),
              "audit": full_audit_path(), "c_api": full_capi_path()}
+    full_lu_route_path()
     path_shapes_phase(set(cn.LAUNCHED), stats)
     kernels = []
     for name in ("col_reduce", "row_sums"):

@@ -74,7 +74,8 @@ _sm_counts: Dict[int, int] = {}     # CUDA device index -> multiprocessor count
 # (device index, stream) -> the int32 tile counters of the in-launch fold; the
 # kernels leave them at 0, so one zero fill per stream serves every later call
 _counters: Dict[Tuple[int, int], torch.Tensor] = {}
-BUILD_LOG = ""
+#: the compiler's output of each library built in this process, by its stem
+BUILD_LOGS: Dict[str, str] = {}
 
 
 def _ceil_div(x: int, d: int) -> int:
@@ -240,32 +241,48 @@ def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise SlateError("nvcc not found: the CUDA norm kernels cannot be built")
+    raise SlateError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def compile_library(src: str, stem: str, libs=()) -> str:
+    """Compile the CUDA source ``src`` for sm_90a, linked with the toolkit's
+    libraries ``libs`` (names such as ``"cusolver"``), into
+    ``_build/lib<stem>_<digest>.so`` (once per source and library list) and
+    return the path; the compiler's output is kept in ``BUILD_LOGS[stem]``.
+    Raises :class:`SlateError` if nvcc is missing or fails.  Safe to call from
+    several processes: the library is written under a temporary name and
+    renamed into place."""
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(libs).encode()).hexdigest()[:16]
+    path = os.path.join(_BUILD_DIR, f"lib{stem}_{digest}.so")
+    if not os.path.exists(path):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        nvcc = _nvcc()
+        link = [f"-l{lib}" for lib in libs]
+        if libs:
+            libdir = os.path.join(os.path.dirname(os.path.dirname(nvcc)), "lib64")
+            link += [f"-L{libdir}", "-Xlinker", "-rpath", "-Xlinker", libdir]
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+               "-o", tmp, src, *link]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_LOGS[stem] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise SlateError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOGS[stem]}")
+        os.replace(tmp, path)
+    return path
 
 
 def build() -> str:
     """Compile ``csrc/norms.cu`` for sm_90a (once per source hash) and load it.
     Returns the library path.  Raises :class:`SlateError` if nvcc is missing
     or fails.  Safe to call from several threads or processes."""
-    global _lib, BUILD_LOG
+    global _lib
     with _lib_lock:
         if _lib is not None:
             return _lib._name
-        with open(_SRC, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        path = os.path.join(_BUILD_DIR, f"libslate_norms_{digest}.so")
-        if not os.path.exists(path):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                   "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-                   "-o", tmp, _SRC]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            BUILD_LOG = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise SlateError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
+        lib = ctypes.CDLL(compile_library(_SRC, "slate_norms"))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         for name in ("slate_col_reduce_f32", "slate_col_reduce_f64"):
             fn = getattr(lib, name)
@@ -276,7 +293,7 @@ def build() -> str:
             fn.argtypes = [p, i64, i64, i64, i32, i32, i64, i32, i32, i32, p, p, p, p]
             fn.restype = i32
         _lib = lib
-        return path
+        return lib._name
 
 
 def _check_input(a: torch.Tensor, mode: int, what: str) -> str:

@@ -25,7 +25,9 @@ import slate_tpu as sj
 import slate_tpu_torch as st
 from slate_tpu.linalg import lu as jlu
 from slate_tpu_torch.core.matrix import from_reference_factors
+from slate_tpu_torch.core.types import Target
 from slate_tpu_torch.linalg import lu as tlu
+from slate_tpu_torch.ops import cuda_pivots as cp
 from slate_tpu_torch.utils import trace as ttrace
 
 RTOL = {np.float64: 1e-12, np.float32: 1e-5}
@@ -73,12 +75,19 @@ def _both_getrf(a, opts):
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("m,n,nb", [(29, 29, 8), (19, 11, 4), (11, 19, 4), (300, 300, 64)],
-                         ids=["square", "tall", "wide", "n300"])
-@pytest.mark.parametrize("target", ["xla", "tiled"])
+@pytest.mark.parametrize("m,n,nb", [(29, 29, 8), (19, 11, 4), (11, 19, 4), (300, 300, 64),
+                                    (517, 517, 32)],
+                         ids=["square", "tall", "wide", "n300", "ragged517"])
+@pytest.mark.parametrize("target", ["xla", "tiled", "tiled-lookahead0"])
 def test_getrf_partial_pivot(target, m, n, nb, dtype):
+    """Both routes; the blocked driver with its default one-panel lookahead
+    ("tiled") and without ("tiled-lookahead0"), over one to seventeen panels
+    (517 = 16 x 32 + 5: a last panel narrower than nb)."""
     a = _gen(m * 100 + n, m, n, dtype)
-    (lj, pj, ij), (lt, pt, it) = _both_getrf(a, {"target": target, "block_size": nb})
+    opts = {"target": target.split("-")[0], "block_size": nb}
+    if target.endswith("lookahead0"):
+        opts["lookahead"] = 0
+    (lj, pj, ij), (lt, pt, it) = _both_getrf(a, opts)
     assert ij == it == 0
     np.testing.assert_array_equal(pt, pj)
     assert lt.dtype == lj.dtype
@@ -190,6 +199,83 @@ def test_info_singular_and_nan(method, target):
         _, _, it = st.getrf(_t(bad), opts)
         assert int(it) == int(ij) > 0
         assert it.dtype == torch.int32
+
+
+def _ipiv_case(kind, seed):
+    """(ipiv, row0, mw): a panel's 1-based LAPACK ipiv of w swaps in a window
+    of mw rows whose top row is row0."""
+    rng = np.random.default_rng(seed)
+    w, mw, row0 = {"random": (16, 200, 0), "self_swaps": (12, 90, 40),
+                   "repeated_targets": (16, 64, 7), "last_square_panel": (5, 5, 512),
+                   "narrower_than_nb": (3, 40, 97), "one_row": (1, 1, 0)}[kind]
+    piv = np.array([rng.integers(k, mw) for k in range(w)])
+    if kind == "self_swaps":
+        piv[::2] = np.arange(w)[::2]
+    if kind == "repeated_targets":
+        piv[1::3] = mw - 1
+        piv[2::3] = w + 1
+    return torch.from_numpy((piv + 1).astype(np.int32)), row0, mw
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.complex128,
+                                   torch.int64], ids=["f64", "f32", "c128", "i64"])
+@pytest.mark.parametrize("kind", ["random", "self_swaps", "repeated_targets",
+                                  "last_square_panel", "narrower_than_nb", "one_row"])
+def test_row_moves_equal_the_host_replay(kind, dtype):
+    """The row-move list of a panel (``cuda_pivots.pivot_moves``) and the row
+    mover (``move_rows``), in their plain versions, give bit for bit what the
+    host replay of the swaps (``_ipiv_perm``) and a whole-window gather give,
+    on the int64 ``perm`` and on a column range of a row-major matrix."""
+    ipiv, row0, mw = _ipiv_case(kind, 5)
+    w = ipiv.shape[0]
+    moves = cp.pivot_moves(ipiv, row0, mw)
+    assert moves.dtype == torch.int32 and moves.shape == (2 * w, 2)
+    live = moves[:, 0] >= 0
+    assert (moves[~live] == -1).all()
+    assert int(live.sum()) <= 2 * w
+    window = torch.from_numpy(tlu._ipiv_perm(ipiv, mw, ttrace.Timers()))
+    assert int(live.sum()) == int((window != torch.arange(mw)).sum())
+    m = row0 + mw
+    perm = cp.move_rows(torch.arange(m), moves)
+    assert torch.equal(perm[:row0], torch.arange(row0))
+    assert torch.equal(perm[row0:], row0 + window)
+    full = (torch.arange(m * 9).reshape(m, 9) * 7 % 1009).to(dtype)
+    got = full.clone()
+    cp.move_rows(got[:, 2:7], moves)
+    want = full.clone()
+    want[row0:, 2:7] = full[row0:, 2:7][window]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("device,shape,target,route", [
+    ("cpu", (49152, 49152), "auto", "library"),
+    ("cuda", (4, 49152, 49152), "auto", "library"),
+    ("cuda", (tlu.LU_LOOKAHEAD_MIN - 1,) * 2, "auto", "library"),
+    ("cuda", (60000, tlu.LU_LOOKAHEAD_MIN - 1), "auto", "library"),
+    ("cuda", (tlu.LU_LOOKAHEAD_MIN,) * 2, "auto", "lookahead"),
+    ("cuda", (49152, 49152), "auto", "lookahead"),
+    ("cuda", (49152, 49152), "xla", "library"),
+    ("cpu", (24, 24), "tiled", "lookahead"),
+    ("cuda", (64, 64), "tiled", "lookahead"),
+], ids=["cpu", "batched", "small", "thin", "crossover", "hpl", "xla", "tiled-cpu",
+        "tiled-small"])
+def test_the_lu_route_is_a_function_of_device_batch_and_shape(device, shape, target,
+                                                              route):
+    assert tlu._lu_route(device, shape, Target.from_string(target)) == route
+
+
+@pytest.mark.parametrize("target,block_size,shape,nb", [
+    ("auto", 256, (49152, 49152), 1024), ("auto", 256, (32768, 40000), 1024),
+    ("auto", 128, (24576, 24576), 768), ("auto", 2048, (16384, 16384), 512),
+    ("auto", 256, (8192, 8192), 256), ("tiled", 64, (300, 300), 64),
+    ("tiled", 256, (19, 11), 11), ("tiled", 8192, (10000, 10000), 4096),
+], ids=["hpl", "wide", "n24576", "n16384", "crossover", "tiled", "tiled-small",
+        "tiled-widest"])
+def test_the_panel_width(target, block_size, shape, nb):
+    """Target Tiled takes Options.block_size; Target Auto derives the width
+    from the shape (min(m, n) / 32 in steps of 256, within [256, 1024]);
+    both within the matrix and the widest panel the pivot kernels take."""
+    assert tlu._panel_width(Target.from_string(target), block_size, *shape) == nb
 
 
 def test_a_nan_the_library_lost_is_put_back():

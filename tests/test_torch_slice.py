@@ -201,6 +201,28 @@ def test_small_general_and_the_card_check_on_the_cpu():
         <= 1e-12 * np.linalg.norm(np.asarray(X))
 
 
+def test_lu_route_phase_on_the_cpu():
+    """Phase 17 of chip_smoke.py (the pivot kernels' checks and the lookahead
+    route against the library route) at a small size on the CPU, where the
+    kernels take their plain versions.  Both routes name the zeroed pivot as
+    the JAX package does, and the NaN on the diagonal as LAPACK does."""
+    lists = cs.pivot_kernel_checks("cpu", cases=((1, 1, 0), (7, 7, 93), (64, 500, 0),
+                                                 (64, 100, 400)), mover_shape=(300, 50),
+                                   hpl_mover=(160, 16), panel_shape=(120, 16))
+    assert lists["pivot_moves_w7_mw7_live"] > 0
+    assert lists["move_rows_hpl_n160_pairs"] == 32
+    assert lists["panel_lu_float64_diff"] == 0.0
+    res = cs.lu_route_checks("cpu", {"check_n": (160,), "info_n": 96})
+    assert res["probe_error_lookahead_n160"] < 1e-15
+    assert res["info_n160"] == (0, 0)
+    A = cs.hpl_matrix(96, cs.SEED, "cpu")
+    A.diagonal().add_(96.0)
+    sing = A.numpy().copy()
+    sing[:, 32] = sing[32, :] = 0.0
+    assert res["info_singular"] == (int(sj.getrf(sing)[2]),) * 2 == (33, 33)
+    assert res["info_nan"] == (49, 49)
+
+
 # ---------------------------------------------------------------------------
 # the serving phase of chip_smoke.py (slate_tpu_torch.serve) at a small size
 # on the CPU: every part of serve_path with its checks, and the card-vs-CPU

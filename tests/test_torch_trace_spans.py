@@ -235,3 +235,27 @@ def test_driver_calls_keep_the_span_counter_and_drop_the_seconds_histogram():
     assert st.obs.REGISTRY.get("slate_span_seconds") is None
     c = st.obs.REGISTRY.get("slate_spans_total")
     assert c.value(routine="gesv", dtype="float64", shape_bucket="<=32") == 1.0
+
+
+def test_the_lookahead_route_records_its_spans_and_counts_its_route():
+    """The blocked driver opens getrf.factor (the private copy and every
+    panel) and getrf.guard under getrf, with no getrf.pivots span; getrf's
+    region carries the route, the panel width and the panel count; the
+    ``pivots`` phase reads 0, since no pivot reaches the host; and
+    ``slate_lu_route_total`` counts each route (Target Auto on a CPU tensor
+    stays on the library route)."""
+    st.obs.reset()
+    A, b = _system(n=40)
+    _profiled(lambda: st.gesv(A, b, {"target": "tiled", "block_size": 16}))
+    assert trace.last_phases("getrf")["pivots"] == 0.0
+    by = _by_name(trace.spans())
+    assert sorted(by) == sorted(set(GESV_TREE) - {"getrf.pivots"})
+    assert by["getrf.factor"]["parent"] == by["getrf.guard"]["parent"] == by["getrf"]["id"]
+    assert by["getrf.factor"]["t_close"] <= by["getrf.guard"]["t_open"]
+    assert {"route": "lookahead", "nb": "16", "panels": "3",
+            "target": "tiled"}.items() <= by["getrf"]["args"].items()
+    _profiled(lambda: st.gesv(A, b))
+    assert {"route": "library", "target": "auto"}.items() \
+        <= _by_name(trace.spans())["getrf"]["args"].items()
+    c = st.obs.REGISTRY.get("slate_lu_route_total")
+    assert c.value(route="lookahead") == 1.0 and c.value(route="library") == 1.0
