@@ -180,7 +180,13 @@ Phases, each of which raises (and so exits non-zero) on any failed check:
     first step at nb 1024, and the perm vector); ``getrf_panel`` (cuSOLVER's
     getrf called directly) against ``torch.linalg.lu_factor_ex`` on a 16384 x
     1024 panel in f32, f64, c64 and c128 (equal pivots, factor within 20 eps
-    sqrt(m)); ``getrf`` on the lookahead route under
+    sqrt(m)); the lookahead route's private copy and NaN guard
+    (``copy_scan_nan``, ``guard_lost_nan``) against their plain versions and
+    ``lu._mark_lost_nan``, bit for bit, in f32, f64, c64 and c128 over six
+    layouts and eight NaN cases, and at 49152² f64 clean and with a NaN the
+    factor lost (``info`` names its column); ``copy_scan_nan`` timed beside
+    ``clone`` and its bound there, and the guard's early exit on a clean
+    factor; ``getrf`` and ``gesv`` on the lookahead route under
     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync; ``perm`` and
     ``info`` stay on the card); the lookahead route against the library
     route at N = 4096 (Target.Tiled) and 49152 (Target.Auto, the route and
@@ -225,6 +231,7 @@ from slate_tpu_torch.serve import executor as sexec
 from slate_tpu_torch.serve import queue as squeue
 from slate_tpu_torch.ops import cuda_norms as cn
 from slate_tpu_torch.ops import cuda_pivots as cp
+from slate_tpu_torch.robust import first_bad_index_batched
 from slate_tpu_torch.utils import trace
 
 # the module (the package binds the name "svd" to the driver function)
@@ -3868,6 +3875,142 @@ def panel_lu_checks(device, shape) -> dict:
     return out
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The raw bits of a float or complex tensor (a view where it is
+    contiguous), so NaNs compare too."""
+    r = torch.view_as_real(t) if t.is_complex() else t
+    return r.contiguous().view(torch.int32 if r.element_size() == 4 else torch.int64)
+
+
+def _guard_inputs(dtype, layout: str, shape, device, gen):
+    """A (m, n) matrix of ``dtype`` in ``layout``: row-major, a view of
+    padded rows, a view one element off a 16-byte boundary, a transposed view,
+    one row, or one strided column."""
+    m, n = shape
+    def draw(*sh):
+        return torch.randn(sh, generator=gen, device=device, dtype=dtype)
+    if layout == "padded":
+        return draw(m, n + 3)[:, :n]
+    if layout == "unaligned":
+        return draw(m, n + 1)[:, 1:]
+    if layout == "transposed":
+        return draw(n, m).mT
+    if layout == "one_row":
+        return draw(1, n)
+    if layout == "one_column":
+        return draw(m, 3)[:, 1:2]
+    return draw(m, n)
+
+
+def nan_guard_checks(device, shape=(37, 29), hpl_n=LU_ROUTE["move_n"]) -> dict:
+    """copy_scan_nan and guard_lost_nan against their plain versions, bit for
+    bit (the copy, the first NaN column, the guarded factor; the factor also
+    against ``lu._mark_lost_nan``): at ``shape`` in f32 / f64 / c64 / c128 over
+    six layouts, clean, with a NaN lost or kept by the factor, in the first
+    or the last column, several, ±Inf, an imaginary NaN; then at the HPL
+    cell's hpl_n² f64, clean and with a NaN the factor lost, whose ``info``
+    names the first NaN column."""
+    out = {}
+    nan = float("nan")
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    cases = 0
+    for dtype in (torch.float32, torch.float64, torch.complex64, torch.complex128):
+        for layout in ("row_major", "padded", "unaligned", "transposed", "one_row",
+                       "one_column"):
+            for case in ("clean", "lost", "kept", "first", "last", "several", "inf",
+                         "imaginary"):
+                if case == "imaginary" and not dtype.is_complex:
+                    continue
+                A = _guard_inputs(dtype, layout, shape, device, gen)
+                m, n = A.shape
+                at = {"lost": [(m // 2, n // 2)], "kept": [(m // 2, n // 2)],
+                      "first": [(m - 1, 0)], "last": [(0, n - 1)],
+                      "several": [(0, n - 1), (m - 1, n // 3), (m // 2, n // 2)],
+                      "imaginary": [(m // 3, n // 2)]}.get(case, [])
+                for r, c in at:
+                    A[r, c] = complex(float(A[r, c].real), nan) \
+                        if case == "imaginary" else nan
+                if case == "inf":
+                    A[0, 0], A[m - 1, n - 1] = float("inf"), -float("inf")
+                k_copy, k_first = cp.copy_scan_nan(A)
+                p_copy, p_first = cp.copy_scan_nan_plain(A)
+                where = f"{dtype} {layout} {case}"
+                require(k_copy.is_contiguous() and torch.equal(_bits(k_copy), _bits(p_copy)),
+                        f"copy_scan_nan's copy differs: {where}")
+                require(torch.equal(k_first, p_first) and
+                        int(k_first) == (min(c for _, c in at) + 1 if at else 0),
+                        f"copy_scan_nan's first column {int(k_first)} differs from "
+                        f"{int(p_first)}: {where}")
+                P = torch.randn((m, n), generator=gen, device=device, dtype=dtype)
+                if case == "kept":
+                    P[m - 1, n - 1] = nan
+                K = cp.guard_lost_nan(P.clone(), k_first)
+                require(torch.equal(_bits(K), _bits(cp.guard_lost_nan_plain(P.clone(),
+                                                                            p_first))),
+                        f"guard_lost_nan differs from its plain version: {where}")
+                require(torch.equal(_bits(K), _bits(llu._mark_lost_nan(A, P.clone()))),
+                        f"guard_lost_nan differs from _mark_lost_nan: {where}")
+                cases += 1
+    out["nan_guard_small_cases"] = cases
+    n = hpl_n
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    A = hpl_matrix(n, SEED + 3, device)
+    copy, first = cp.copy_scan_nan(A)
+    require(int(first) == 0 and torch.equal(copy, A),
+            f"copy_scan_nan at {n}^2 f64: first {int(first)}, copy equal "
+            f"{torch.equal(copy, A)}")
+    cp.guard_lost_nan(copy, first)
+    require(torch.equal(copy, A), f"guard_lost_nan wrote into a clean {n}^2 factor")
+    del copy
+    c = n // 2 + 7
+    A[n // 3, c] = nan
+    A[n - 1, c + 11] = nan
+    copy, first = cp.copy_scan_nan(A)
+    want = int(first_bad_index_batched(torch.isnan(A).any(dim=-2)))
+    require(int(first) == want == c + 1 and torch.equal(_bits(copy), _bits(A)),
+            f"copy_scan_nan at {n}^2 f64 with a NaN: first {int(first)}, plain {want}")
+    del copy
+    P = hpl_matrix(n, SEED + 4, device)         # a finite factor: the NaN lost
+    K = cp.guard_lost_nan(P.clone(), first)
+    llu._mark_lost_nan(A, P)
+    info = int(llu._lu_info(K.diagonal()))
+    require(torch.equal(_bits(K), _bits(P)) and info == c + 1,
+            f"guard_lost_nan at {n}^2 f64 with a lost NaN: equal "
+            f"{torch.equal(_bits(K), _bits(P))}, info {info} (want {c + 1})")
+    out[f"nan_guard_hpl_n{n}_info"] = info
+    del A, P, K
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def nan_guard_times(n: int = LU_ROUTE["move_n"]) -> dict:
+    """At the HPL cell's n² f64: copy_scan_nan beside the ``clone`` it
+    replaces (interleaved rounds) and its bound (A read once, the copy written
+    once); the guard's early exit on a clean factor; the plain versions and
+    the library route's ``_mark_lost_nan`` on the same clean inputs."""
+    out = {}
+    A = hpl_matrix(n, SEED, "cuda")
+    ks, ls = interleaved(lambda: cp.copy_scan_nan(A),
+                         lambda: A.clone(memory_format=torch.contiguous_format))
+    out["copy_scan_nan_ms"] = statistics.median(ks)
+    out["copy_scan_nan_range_ms"] = (min(ks), max(ks))
+    out["clone_ms"] = statistics.median(ls)
+    out["clone_range_ms"] = (min(ls), max(ls))
+    out["copy_scan_nan_bound_ms"] = cp.move_bound_ms(n, n, 8)
+    out["copy_scan_nan_plain_ms"] = time_ms(lambda: cp.copy_scan_nan_plain(A), reps=3)
+    copy, first = cp.copy_scan_nan(A)
+    out["guard_lost_nan_clean_ms"] = time_ms(lambda: cp.guard_lost_nan(copy, first),
+                                             reps=200)
+    out["guard_lost_nan_plain_ms"] = time_ms(
+        lambda: cp.guard_lost_nan_plain(copy, first), reps=3)
+    out["mark_lost_nan_ms"] = time_ms(lambda: llu._mark_lost_nan(A, copy), reps=3)
+    del A, copy
+    torch.cuda.empty_cache()
+    return out
+
+
 def pivot_kernel_times(n: int = LU_ROUTE["move_n"],
                        nbs=LU_ROUTE["move_nb"]) -> dict:
     """Each kernel's time on the card (CUDA events, mean of 20 calls after
@@ -3938,7 +4081,7 @@ def lu_route_checks(device, sizes: dict = LU_ROUTE) -> dict:
     """The lookahead route against the library route: probe error, info (on
     a diagonally dominant matrix, a singular copy and a copy with a NaN on
     the diagonal), the route's own devices for perm and info, and no host
-    sync."""
+    sync in ``getrf`` or ``gesv``."""
     out = {}
     tiled, library = {"target": "tiled"}, {"target": "xla"}
     n = sizes["info_n"]
@@ -3958,13 +4101,17 @@ def lu_route_checks(device, sizes: dict = LU_ROUTE) -> dict:
     if torch.device(device).type == "cuda":
         slate.getrf(A, tiled)
         torch.cuda.synchronize()
+        b = torch.ones((n, 1), dtype=A.dtype, device=A.device)
+        slate.gesv(A, b, tiled)
+        torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             LU, perm, info = slate.getrf(A, tiled)
+            X, _, x_info = slate.gesv(A, b, tiled)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        require(perm.is_cuda and info.is_cuda and perm.dtype == torch.int64,
-                "perm and info left the card")
+        require(perm.is_cuda and info.is_cuda and perm.dtype == torch.int64
+                and X.is_cuda and x_info.is_cuda, "perm and info left the card")
         out["no_sync"] = True
     routes = slate.obs.REGISTRY.counter("slate_lu_route_total")
     for n in sizes["check_n"]:
@@ -4038,10 +4185,12 @@ def full_lu_route_path() -> dict:
     for k in cp.LAUNCHES:
         cp.LAUNCHES[k] = 0
     res = pivot_kernel_checks("cuda")
+    res.update(nan_guard_checks("cuda"))
     checks = dict(cp.LAUNCHES)
     require(all(v > 0 for v in checks.values()), f"a pivot kernel did not launch: {checks}")
     res["check_launches"] = checks
     res.update(pivot_kernel_times())
+    res.update(nan_guard_times())
     res.update(lu_route_checks("cuda"))
     res.update(lu_route_times())
     res["phase_s"] = time.perf_counter() - t0

@@ -1,12 +1,15 @@
-// Row pivots of the blocked LU kept on the card, and its panel LU, bound through a
-// plain C ABI.
+// Row pivots of the blocked LU kept on the card, its panel LU, and its private copy
+// and NaN guard, bound through a plain C ABI.
 //
 // Replaces no Pallas kernel: the JAX package's LU is XLA's, which keeps its pivots on
-// the device by itself.  These two kernels were added for the port's own blocked LU
-// (linalg/lu.py::_getrf_tiled), so that a library panel's LAPACK ipiv becomes row
+// the device by itself.  The two pivot kernels were added for the port's own blocked
+// LU (linalg/lu.py::_getrf_tiled), so that a library panel's LAPACK ipiv becomes row
 // moves on the card: before them every panel's ipiv went to the host, was replayed in
 // Python into a permutation of the m - k0 rows below the panel and came back, one host
-// sync a panel, and the lookahead pipeline could overlap nothing.
+// sync a panel, and the lookahead pipeline could overlap nothing.  The copy-and-scan
+// and the guard were added so that the NaN guard on the same route costs nothing when
+// A holds no NaN: before them it read A and the factor again and rewrote the whole
+// factor, about 29 ms a solve at 49152^2 f64.
 //
 //   pivot_moves  a panel's w sequential swaps (1-based ipiv, relative to its top row
 //                k0) -> a list of 2w (dst, src) absolute row pairs, (-1, -1) where no
@@ -14,6 +17,13 @@
 //   move_rows    applies such a list to a column range of a row-major matrix (or to a
 //                vector, one element a row), for elements of 4, 8 or 16 bytes, so
 //                every dtype and the int64 permutation share it.
+//   copy_scan_nan    the LU's private row-major copy of A, and in the same pass the
+//                1-based index of A's first column that holds a NaN (0 for none),
+//                written to one device int32: what the NaN guard asks of A.
+//   guard_lost_nan   the NaN guard on the factor, predicated on that index: it does
+//                nothing when A held no NaN; otherwise, when the factor lost every
+//                NaN, it NaN-fills every row of the columns from the first NaN
+//                column on (linalg/lu.py::_mark_lost_nan's rule, bit for bit).
 //   getrf        the library's partially pivoted LU of one column-major panel,
 //                cuSOLVER's getrf queued on the caller's stream through a handle of
 //                this library's own.  PyTorch reaches cuSOLVER for a non-square
@@ -29,6 +39,11 @@
 //   move_rows: the bytes of the moved rows, each read once and written once:
 //   2 * rows * ncols * itemsize at 3.35 TB/s (H100 SXM), 0.24 ms for 1024 rows of
 //   49152 f64.
+//   copy_scan_nan: the bytes, A read once and the copy written once:
+//   2 * m * n * itemsize at 3.35 TB/s, 11.5 ms at 49152^2 f64.
+//   guard_lost_nan: latency where A held no NaN (two launches whose blocks read one
+//   int32 and return); otherwise one read of the factor and, where the NaN was lost,
+//   one write of the columns it fills.
 //
 // The design:
 //   1. Slots, not a window.  A replay can touch only the w panel rows and the w swap
@@ -55,6 +70,22 @@
 //      A laswp that is parallel over columns and sequential over the swaps was not
 //      taken: each of its threads would chain 2w dependent memory round trips, about
 //      0.6 ms a panel at w = 512 on the critical path.
+//   4. copy_scan_nan streams the matrix as 16-byte packs (neighbouring threads on
+//      neighbouring packs) wherever the bases and the row pitch allow, and as single
+//      scalars elsewhere; a matrix whose rows lie back to back is walked as one long
+//      row.  A block takes one pack a thread and leaves: blocks start in order, so
+//      the blocks in flight read and write one narrow stretch of memory at a time
+//      (12.7 ms at 49152^2 f64, as fast as clone; a persistent grid-stride loop over
+//      the same blocks took 13.5, PERF.md §6).  Complex elements are two scalars, a
+//      NaN in either part counts.  A thread keeps the smallest NaN column it has seen
+//      in a register; only a block that saw one reduces it (warp min, then shared
+//      memory) and publishes it with one compare-and-swap loop, so a clean matrix
+//      makes no atomics.  The column is worked out only for a NaN found.
+//   5. guard_lost_nan's two kernels read the index on the card, in stream order:
+//      no host sync, and nothing to do when it is 0, so their grids are one wave of
+//      blocks that loop.  The first sets a flag on the
+//      first NaN it meets in the factor (every block leaves once the flag is set);
+//      the second fills only when the index is set and the flag is not.
 // The pivot entry points return cudaGetLastError() after their launch, or
 // cudaErrorInvalidValue for arguments the kernels do not take; the getrf entry points
 // return a cusolverStatus_t.
@@ -63,6 +94,9 @@
 #include <cuda_runtime.h>
 #include <cusolverDn.h>
 #include <stdint.h>
+
+#include <climits>
+#include <cstring>
 
 #include <mutex>
 
@@ -210,6 +244,199 @@ int move_rows_entry(void* a, int64_t lda, int64_t ncols, const void* moves, int 
 }
 
 // ---------------------------------------------------------------------------
+// copy_scan_nan and guard_lost_nan
+// ---------------------------------------------------------------------------
+
+constexpr int kScanThreads = 256;        // threads a block, one pack each at a time
+
+// A matrix as the scan kernels walk it (ops/cuda_pivots.py::scan_plan works it out):
+// `rows` rows of `len` packs of VW scalars, `lds` / `ldd` packs apart in the source
+// and the copy; `units` blocks' worth of packs a row.
+struct ScanView {
+  int64_t rows, len, units, lds, ldd;
+};
+
+template <typename S, int VW>
+struct Pack {
+  S v[VW];
+};
+
+template <typename S, int VW>
+__device__ __forceinline__ Pack<S, VW> load_pack(const S* p) {
+  static_assert(VW == 1 || VW * sizeof(S) == 16, "a pack is one scalar or 16 bytes");
+  Pack<S, VW> out;
+  if constexpr (VW == 1) {
+    out.v[0] = __ldg(p);
+  } else {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    memcpy(&out, &u, sizeof(u));
+  }
+  return out;
+}
+
+template <typename S, int VW>
+__device__ __forceinline__ void store_pack(S* p, const Pack<S, VW>& x) {
+  if constexpr (VW == 1) {
+    p[0] = x.v[0];
+  } else {
+    uint4 u;
+    memcpy(&u, &x, sizeof(u));
+    *reinterpret_cast<uint4*>(p) = u;
+  }
+}
+
+template <typename S, int VW>
+__device__ __forceinline__ bool has_nan(const Pack<S, VW>& x) {
+  bool nan = false;
+#pragma unroll
+  for (int e = 0; e < VW; ++e) nan |= x.v[e] != x.v[e];
+  return nan;
+}
+
+// The block's smallest `best` (0-based column, INT_MAX for none) into the 1-based
+// *first (0 for none), kept at the smallest any block publishes.  Every thread of
+// the block calls it; a block that saw no NaN leaves at the first barrier.
+__device__ __forceinline__ void publish_first(int best, int* first) {
+  __shared__ int warp_best[kScanThreads / 32];
+  if (!__syncthreads_or(best != INT_MAX)) return;
+  best = __reduce_min_sync(0xffffffffu, best);
+  if ((threadIdx.x & 31) == 0) warp_best[threadIdx.x >> 5] = best;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  for (int w = 1; w < kScanThreads / 32; ++w) best = min(best, warp_best[w]);
+  const int mine = best + 1;
+  int old = *reinterpret_cast<volatile int*>(first);
+  while (old == 0 || old > mine) {
+    const int prev = atomicCAS(first, old, mine);
+    if (prev == old) break;
+    old = prev;
+  }
+}
+
+// Copy (kCopy) and scan src, or scan it alone.  Scalar s of a view row belongs to
+// column (s / comps) % n of the matrix: the row of a flat view runs over every row
+// of the matrix.
+template <typename S, int VW, bool kCopy>
+__global__ void __launch_bounds__(kScanThreads)
+copy_scan_kernel(const S* __restrict__ src, S* __restrict__ dst, ScanView w, int comps,
+                 int64_t n, int* __restrict__ first) {
+  int best = INT_MAX;
+  const int64_t total = w.rows * w.units;
+  for (int64_t u = blockIdx.x; u < total; u += gridDim.x) {
+    const int64_t r = w.rows == 1 ? 0 : u / w.units;    // no division on a flat view
+    const int64_t v = (u - r * w.units) * kScanThreads + threadIdx.x;
+    if (v >= w.len) continue;
+    const Pack<S, VW> x = load_pack<S, VW>(src + (r * w.lds + v) * VW);
+    if constexpr (kCopy) store_pack<S, VW>(dst + (r * w.ldd + v) * VW, x);
+    if (has_nan(x)) {
+#pragma unroll
+      for (int e = 0; e < VW; ++e)
+        if (x.v[e] != x.v[e]) best = min(best, static_cast<int>((v * VW + e) / comps % n));
+    }
+  }
+  publish_first(best, first);
+}
+
+// Sets *kept when the factor holds a NaN; nothing to do when *first is 0.
+template <typename S, int VW>
+__global__ void __launch_bounds__(kScanThreads)
+guard_scan_kernel(const S* __restrict__ a, ScanView w, const int* __restrict__ first,
+                  int* kept) {
+  if (*first == 0) return;
+  volatile int* flag = kept;
+  const int64_t total = w.rows * w.units;
+  for (int64_t u = blockIdx.x; u < total; u += gridDim.x) {
+    if (*flag) return;
+    const int64_t r = w.rows == 1 ? 0 : u / w.units;    // no division on a flat view
+    const int64_t v = (u - r * w.units) * kScanThreads + threadIdx.x;
+    if (v < w.len && has_nan(load_pack<S, VW>(a + (r * w.lds + v) * VW))) {
+      *flag = 1;
+      return;
+    }
+  }
+}
+
+template <typename S>
+__device__ __forceinline__ S quiet_nan();
+template <>
+__device__ __forceinline__ float quiet_nan<float>() {
+  return __int_as_float(0x7fc00000);
+}
+template <>
+__device__ __forceinline__ double quiet_nan<double>() {
+  return __longlong_as_double(0x7ff8000000000000LL);
+}
+
+// Where *first is set and *kept is not, every row's columns from *first - 1 on
+// become NaN (a complex element NaN + 0i): what masked_fill_ writes for nan.
+template <typename S>
+__global__ void __launch_bounds__(kScanThreads)
+guard_fill_kernel(S* __restrict__ a, int64_t lda, int64_t m, int64_t n, int comps,
+                  int64_t units, const int* __restrict__ first,
+                  const int* __restrict__ kept) {
+  const int f = *first;
+  if (f == 0 || *kept) return;
+  const int64_t c0 = f - 1;
+  const S nan = quiet_nan<S>();
+  for (int64_t u = blockIdx.x; u < m * units; u += gridDim.x) {
+    const int64_t r = u / units;
+    const int64_t c = (u - r * units) * kScanThreads + threadIdx.x;
+    if (c >= c0 && c < n) {
+      S* e = a + (r * lda + c) * comps;
+      e[0] = nan;
+      if (comps == 2) e[1] = S(0);
+    }
+  }
+}
+
+bool bad_view(const ScanView& w, int vw, int scalar) {
+  return w.rows < 0 || w.len < 0 || w.lds < 0 || w.ldd < 0 ||
+         (vw != 1 && vw * scalar != 16);
+}
+
+template <typename S>
+int copy_scan_entry(const void* src, void* dst, ScanView w, int vw, int comps, int64_t n,
+                    int blocks, int* first, cudaStream_t stream) {
+  cudaError_t rc = cudaMemsetAsync(first, 0, sizeof(int), stream);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (w.rows == 0 || w.len == 0) return 0;
+  const S* s = static_cast<const S*>(src);
+  S* d = static_cast<S*>(dst);
+  if (vw == 1) {
+    if (d != nullptr)
+      copy_scan_kernel<S, 1, true><<<blocks, kScanThreads, 0, stream>>>(s, d, w, comps, n, first);
+    else
+      copy_scan_kernel<S, 1, false><<<blocks, kScanThreads, 0, stream>>>(s, d, w, comps, n, first);
+  } else {
+    constexpr int kVw = 16 / sizeof(S);
+    if (d != nullptr)
+      copy_scan_kernel<S, kVw, true><<<blocks, kScanThreads, 0, stream>>>(s, d, w, comps, n, first);
+    else
+      copy_scan_kernel<S, kVw, false><<<blocks, kScanThreads, 0, stream>>>(s, d, w, comps, n, first);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+int guard_entry(void* a, ScanView w, int vw, int64_t lda, int64_t m, int64_t n, int comps,
+                int blocks, const int* first, int* kept, cudaStream_t stream) {
+  cudaError_t rc = cudaMemsetAsync(kept, 0, sizeof(int), stream);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (m == 0 || n == 0) return 0;
+  S* p = static_cast<S*>(a);
+  if (vw == 1)
+    guard_scan_kernel<S, 1><<<blocks, kScanThreads, 0, stream>>>(p, w, first, kept);
+  else
+    guard_scan_kernel<S, 16 / sizeof(S)><<<blocks, kScanThreads, 0, stream>>>(p, w, first, kept);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int64_t units = (n + kScanThreads - 1) / kScanThreads;
+  guard_fill_kernel<S><<<blocks, kScanThreads, 0, stream>>>(p, lda, m, n, comps, units,
+                                                            first, kept);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // getrf: one cuSOLVER handle a device, made on first use.  A handle holds one
 // stream, so setting it and queueing the factor happen under one lock.
 // ---------------------------------------------------------------------------
@@ -331,6 +558,47 @@ int slate_move_rows(void* a, int64_t lda, int64_t ncols, int itemsize, const voi
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The private row-major copy of src (dtype 0 f32, 1 f64, 2 c64, 3 c128) into dst, or
+// with dst null the scan of src alone, walked as the view (rows, len, lds, ldd) of
+// vw-scalar packs; *first (one device int32) becomes the 1-based index of the first
+// of its n columns that holds a NaN, 0 for none.  blocks: the grid (a block a
+// kScanThreads packs where it fits).  No host sync.
+int slate_copy_scan_nan(int dtype, const void* src, void* dst, int64_t rows, int64_t len,
+                        int64_t lds, int64_t ldd, int vw, int64_t n, int blocks,
+                        void* first, void* stream) {
+  const int scalar = (dtype == 0 || dtype == 2) ? 4 : 8;
+  const ScanView w{rows, len, (len + kScanThreads - 1) / kScanThreads, lds, ldd};
+  if (dtype < 0 || dtype > 3 || src == nullptr || first == nullptr || n < 1 ||
+      n >= INT_MAX || blocks < 1 || bad_view(w, vw, scalar))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int comps = dtype >= 2 ? 2 : 1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* f = static_cast<int*>(first);
+  return scalar == 4 ? copy_scan_entry<float>(src, dst, w, vw, comps, n, blocks, f, st)
+                     : copy_scan_entry<double>(src, dst, w, vw, comps, n, blocks, f, st);
+}
+
+// The NaN guard on the m x n factor a (row pitch lda elements, walked for its scan as
+// the view (rows, len, lds) of vw-scalar packs): nothing where *first is 0; else the
+// columns from *first - 1 on are NaN-filled unless the factor holds a NaN.  kept: one
+// device int32 of scratch.  blocks: the grid of both launches (one wave).  Two
+// launches, no host sync.
+int slate_guard_lost_nan(int dtype, void* a, int64_t lda, int64_t m, int64_t n,
+                         int64_t rows, int64_t len, int64_t lds, int vw, int blocks,
+                         const void* first, void* kept, void* stream) {
+  const int scalar = (dtype == 0 || dtype == 2) ? 4 : 8;
+  const ScanView w{rows, len, (len + kScanThreads - 1) / kScanThreads, lds, 0};
+  if (dtype < 0 || dtype > 3 || a == nullptr || first == nullptr || kept == nullptr ||
+      lda < 0 || m < 0 || n < 0 || n >= INT_MAX || blocks < 1 || bad_view(w, vw, scalar))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int comps = dtype >= 2 ? 2 : 1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* f = static_cast<const int*>(first);
+  int* k = static_cast<int*>(kept);
+  return scalar == 4 ? guard_entry<float>(a, w, vw, lda, m, n, comps, blocks, f, k, st)
+                     : guard_entry<double>(a, w, vw, lda, m, n, comps, blocks, f, k, st);
 }
 
 }  // extern "C"

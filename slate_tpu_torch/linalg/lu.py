@@ -42,7 +42,10 @@ What differs from the JAX package:
 * ``perm`` is an int64 tensor (torch's index type; the JAX package's is int32).
 * ``info`` is read from the U diagonal, as in the JAX package, but the card's
   library LU can lose a NaN input altogether; :func:`_mark_lost_nan` puts it
-  back where the CPU libraries leave it.
+  back where the CPU libraries leave it.  The lookahead route learns
+  whether A held a NaN from its private copy (``cuda_pivots.copy_scan_nan``)
+  and guards the factor only then (``cuda_pivots.guard_lost_nan``), with the
+  same result.
 * RBT randomness comes from a ``torch.Generator`` (seeded with 42 by default):
   the butterflies differ from the JAX package's ``PRNGKey(42)`` draws, so only
   the solution and the reports are comparable.
@@ -482,7 +485,12 @@ def getrf(A, opts=None):
     Auto the driver for a single CUDA matrix of min(m, n) >=
     :data:`LU_LOOKAHEAD_MIN` and the library otherwise.  Host syncs: one on
     the library route (the pivots), none on the driver's.  Each call counts
-    its route in ``slate_lu_route_total{route}``.
+    its route in ``slate_lu_route_total{route}`` and its NaN guard in
+    ``slate_lu_guard_total{guard}``: ``library`` (:func:`_mark_lost_nan`) on
+    the library route; ``fused`` on the lookahead route, whose private copy finds
+    A's first NaN column in the pass that copies it
+    (``cuda_pivots.copy_scan_nan``) and whose guard does nothing on the card
+    when there is none (``cuda_pivots.guard_lost_nan``).
     """
     opts = Options.make(opts)
     # validated up front, on EVERY path: a typo'd lu_panel must raise, never
@@ -513,8 +521,9 @@ def getrf(A, opts=None):
     a = inject("getrf", as_array(A))
     m, n = a.shape[-2:]
     route = _lu_route(a.device.type, a.shape, opts.target)
+    guard = "library" if route == "library" else "fused"
     timers = Timers()
-    annotate(m=m, n=n, target=str(opts.target), route=route)
+    annotate(m=m, n=n, target=str(opts.target), route=route, guard=guard)
     if route == "library":
         # _lu_factor's two steps, each a span timed on the card
         with trace_block("getrf.factor", device=a.device):
@@ -529,11 +538,14 @@ def getrf(A, opts=None):
         annotate(nb=nb, panels=-(-min(m, n) // nb))
         timers["pivots"] = 0.0      # the pivots never reach the host here
         with trace_block("getrf.factor", device=a.device):
-            out, perm = _getrf_tiled(_private_copy(a), nb, opts.lookahead)
+            copy, first = cuda_pivots.copy_scan_nan(a)
+            out, perm = _getrf_tiled(copy, nb, opts.lookahead)
         with trace_block("getrf.guard", device=a.device):
-            out = _mark_lost_nan(a, out)
+            out = cuda_pivots.guard_lost_nan(out, first)
     counter("slate_lu_route_total", "partial-pivot getrf calls, by route").inc(
         route=route)
+    counter("slate_lu_guard_total", "partial-pivot getrf NaN guards, by kind").inc(
+        guard=guard)
     record_phases("getrf", timers)
     info = _lu_info(torch.diagonal(out, dim1=-2, dim2=-1))
     return write_back(A, out), perm, info

@@ -28,6 +28,7 @@ from slate_tpu_torch.core.matrix import from_reference_factors
 from slate_tpu_torch.core.types import Target
 from slate_tpu_torch.linalg import lu as tlu
 from slate_tpu_torch.ops import cuda_pivots as cp
+from slate_tpu_torch.robust import first_bad_index_batched
 from slate_tpu_torch.utils import trace as ttrace
 
 RTOL = {np.float64: 1e-12, np.float32: 1e-5}
@@ -297,6 +298,132 @@ def test_a_nan_the_library_lost_is_put_back():
     assert torch.equal(tlu._mark_lost_nan(_t(a), finite.clone()), finite)
     both = tlu._mark_lost_nan(_t(np.stack([nan, a])), torch.stack([finite, finite]))
     assert torch.isnan(both[0, :, 9:]).all() and not torch.isnan(both[1]).any()
+
+
+def _bits(t):
+    """The raw bits of a float or complex tensor, so NaNs compare too."""
+    r = torch.view_as_real(t) if t.is_complex() else t
+    return r.contiguous().view(torch.int32 if r.element_size() == 4 else torch.int64)
+
+
+_GUARD_DTYPES = {"f32": torch.float32, "f64": torch.float64, "c64": torch.complex64,
+                 "c128": torch.complex128}
+# case -> the 1-based first NaN column of A (n = 24), 0 for none
+_GUARD_CASES = {"clean": 0, "lost": 10, "kept": 10, "first_column": 1, "last_column": 24,
+                "several_columns": 6, "inf_no_nan": 0, "imaginary_nan": 8,
+                "transposed": 10}
+
+
+def _guard_case(case, dtype):
+    """(A, plu) for one NaN-guard case: A 24 x 24 of ``dtype`` (a transposed
+    view for "transposed"), plu a finite factor of the clean matrix, with one
+    NaN where the factor kept it."""
+    n = 24
+    a = _gen(31, n, n, cplx=dtype.is_complex) + n * np.eye(n)
+    clean = torch.from_numpy(a).to(dtype)
+    plu, _, _ = torch.linalg.lu_factor_ex(clean)
+    A = clean.clone()
+    nan = float("nan")
+    if case in ("lost", "kept"):
+        A[9, 9] = nan
+    elif case == "first_column":
+        A[17, 0] = nan
+    elif case == "last_column":
+        A[0, n - 1] = nan
+    elif case == "several_columns":
+        A[3, 14], A[20, 5], A[0, 20] = nan, nan, nan
+    elif case == "inf_no_nan":
+        A[4, 4], A[11, 2] = float("inf"), -float("inf")
+    elif case == "imaginary_nan":
+        A[2, 7] = complex(float(A[2, 7].real), nan)
+    elif case == "transposed":
+        B = clean.clone()
+        B[9, 4] = nan
+        A = B.mT
+    if case == "kept":
+        plu[3, 17] = nan
+    return A, plu
+
+
+@pytest.mark.parametrize("dtype,case", [
+    (d, c) for d in _GUARD_DTYPES for c in _GUARD_CASES
+    if c != "imaginary_nan" or _GUARD_DTYPES[d].is_complex])
+def test_copy_scan_and_guard_equal_the_private_copy_and_mark_lost_nan(dtype, case):
+    """The lookahead route's NaN guard (``cuda_pivots.copy_scan_nan`` then
+    ``guard_lost_nan``, here their plain versions) gives bit for bit what the
+    library route's ``_private_copy`` + ``_mark_lost_nan`` give: the copy, the
+    first NaN column of A, and the guarded factor."""
+    A, plu = _guard_case(case, _GUARD_DTYPES[dtype])
+    copy, first = cp.copy_scan_nan(A)
+    want = tlu._private_copy(A)
+    assert copy.is_contiguous() and copy.dtype == want.dtype
+    assert torch.equal(_bits(copy), _bits(want))
+    assert copy.data_ptr() != A.data_ptr()
+    assert first.dtype == torch.int32 and first.shape == ()
+    assert int(first) == _GUARD_CASES[case]
+    assert torch.equal(first, first_bad_index_batched(torch.isnan(A).any(dim=-2)))
+    got = cp.guard_lost_nan(plu.clone(), first)
+    ref = tlu._mark_lost_nan(A, plu.clone())
+    assert torch.equal(_bits(got), _bits(ref))
+    filled = case not in ("clean", "kept", "inf_no_nan")
+    assert bool(torch.isnan(got[:, int(first) - 1:]).all()) == filled
+    if filled:
+        assert int(tlu._lu_info(got.diagonal())) == int(first)
+    else:
+        assert torch.equal(_bits(got), _bits(plu))
+
+
+@pytest.mark.parametrize("m,n,dtype,lds,aligned,copy,vw", [
+    (5, 6, torch.float64, 6, True, True, 2),         # back to back: one flat row
+    (3, 5, torch.float32, 5, True, True, 1),         # 15 scalars: no whole packs
+    (4, 6, torch.float64, 8, True, True, 2),         # padded rows, 64-byte pitch
+    (4, 6, torch.float64, 7, True, True, 1),         # a 56-byte pitch
+    (4, 3, torch.complex64, 4, True, True, 1),       # rows of 6 scalars
+    (4, 3, torch.complex128, 5, True, True, 2),      # rows of 6, an 80-byte pitch
+    (1, 9, torch.float32, 40, True, True, 1),        # one row: flat, 9 scalars
+    (7, 1, torch.float64, 3, True, True, 1),         # one strided column
+    (6, 8, torch.float32, 8, False, True, 1),        # an unaligned base
+    (5, 4, torch.float32, 12, True, False, 4),       # the scan alone, padded rows
+], ids=["flat", "flat-ragged", "padded", "padded-odd", "c64", "c128", "one-row",
+        "one-column", "unaligned", "scan-only"])
+def test_the_scan_plan_walks_every_element_once(m, n, dtype, lds, aligned, copy, vw):
+    """``cuda_pivots.scan_plan``, the walk the card's copy-and-scan kernel
+    takes, emulated: every scalar of the m x n matrix (rows ``lds`` elements
+    apart) is read once, written once to its place in the row-major copy, and
+    credited to its own column."""
+    g = cp.scan_plan(m, n, dtype, lds, aligned, copy)
+    assert g["vw"] == vw
+    assert g["units"] == -(-g["len"] // 256)
+    assert g["blocks"] == min(g["rows"] * g["units"], 2**31 - 1)
+    c, w = g["comps"], g["vw"]
+    r, v, e = np.meshgrid(np.arange(g["rows"]), np.arange(g["len"]), np.arange(w),
+                          indexing="ij")
+    s = v * w + e
+    got = np.stack([r * g["lds"] * w + s, r * g["ldd"] * w + s, s // c % n], -1)
+    i, j, k = np.meshgrid(np.arange(m), np.arange(n), np.arange(c), indexing="ij")
+    want = np.stack([(i * lds + j) * c + k, (i * n + j) * c + k, j], -1)
+    got, want = got.reshape(-1, 3), want.reshape(-1, 3)
+    if not copy:
+        got, want = got[:, [0, 2]], want[:, [0, 2]]
+    assert np.array_equal(np.unique(got, axis=0), np.unique(want, axis=0))
+    assert len(got) == len(want)
+
+
+@pytest.mark.parametrize("target,route,guard", [
+    ("tiled", "lookahead", "fused"), ("xla", "library", "library"),
+    ("auto", "library", "library")])
+def test_each_route_counts_its_guard(target, route, guard):
+    """The lookahead route guards with the fused copy-and-scan
+    (``slate_lu_guard_total{guard="fused"}``), the library route with
+    ``_mark_lost_nan`` (``{guard="library"}``); Target Auto on a CPU tensor
+    takes the library route."""
+    st.obs.reset()
+    a = _gen(8, 40, 40)
+    st.getrf(_t(a), {"target": target, "block_size": 16})
+    assert st.obs.REGISTRY.get("slate_lu_route_total").value(route=route) == 1.0
+    c = st.obs.REGISTRY.get("slate_lu_guard_total")
+    assert c.value(guard=guard) == 1.0
+    assert c.value(guard="library" if guard == "fused" else "fused") == 0.0
 
 
 # ---------------------------------------------------------------------------

@@ -202,7 +202,8 @@ def test_small_general_and_the_card_check_on_the_cpu():
 
 
 def test_lu_route_phase_on_the_cpu():
-    """Phase 17 of chip_smoke.py (the pivot kernels' checks and the lookahead
+    """Phase 17 of chip_smoke.py (the pivot kernels' checks, the private copy
+    and NaN guard against the library route's, and the lookahead
     route against the library route) at a small size on the CPU, where the
     kernels take their plain versions.  Both routes name the zeroed pivot as
     the JAX package does, and the NaN on the diagonal as LAPACK does."""
@@ -212,6 +213,9 @@ def test_lu_route_phase_on_the_cpu():
     assert lists["pivot_moves_w7_mw7_live"] > 0
     assert lists["move_rows_hpl_n160_pairs"] == 32
     assert lists["panel_lu_float64_diff"] == 0.0
+    guard = cs.nan_guard_checks("cpu", shape=(9, 7), hpl_n=160)
+    assert guard["nan_guard_small_cases"] == 4 * 6 * 7 + 2 * 6
+    assert guard["nan_guard_hpl_n160_info"] == 160 // 2 + 8
     res = cs.lu_route_checks("cpu", {"check_n": (160,), "info_n": 96})
     assert res["probe_error_lookahead_n160"] < 1e-15
     assert res["info_n160"] == (0, 0)

@@ -243,7 +243,9 @@ def test_the_lookahead_route_records_its_spans_and_counts_its_route():
     region carries the route, the panel width and the panel count; the
     ``pivots`` phase reads 0, since no pivot reaches the host; and
     ``slate_lu_route_total`` counts each route (Target Auto on a CPU tensor
-    stays on the library route)."""
+    stays on the library route); ``getrf`` carries its NaN guard, ``fused``
+    on the lookahead route and ``library`` on the other, and
+    ``slate_lu_guard_total`` counts each."""
     st.obs.reset()
     A, b = _system(n=40)
     _profiled(lambda: st.gesv(A, b, {"target": "tiled", "block_size": 16}))
@@ -252,10 +254,12 @@ def test_the_lookahead_route_records_its_spans_and_counts_its_route():
     assert sorted(by) == sorted(set(GESV_TREE) - {"getrf.pivots"})
     assert by["getrf.factor"]["parent"] == by["getrf.guard"]["parent"] == by["getrf"]["id"]
     assert by["getrf.factor"]["t_close"] <= by["getrf.guard"]["t_open"]
-    assert {"route": "lookahead", "nb": "16", "panels": "3",
+    assert {"route": "lookahead", "guard": "fused", "nb": "16", "panels": "3",
             "target": "tiled"}.items() <= by["getrf"]["args"].items()
     _profiled(lambda: st.gesv(A, b))
-    assert {"route": "library", "target": "auto"}.items() \
+    assert {"route": "library", "guard": "library", "target": "auto"}.items() \
         <= _by_name(trace.spans())["getrf"]["args"].items()
     c = st.obs.REGISTRY.get("slate_lu_route_total")
     assert c.value(route="lookahead") == 1.0 and c.value(route="library") == 1.0
+    g = st.obs.REGISTRY.get("slate_lu_guard_total")
+    assert g.value(guard="fused") == 1.0 and g.value(guard="library") == 1.0
